@@ -1,0 +1,79 @@
+"""Threefry-2x32 uniforms, bit-identical to `jax.random.uniform` on raw keys.
+
+The counting service draws each flush epoch's stochastic-rounding
+uniforms from the raw key (seed, flush#).  With JAX's partitionable
+threefry scheme, element i of a draw of `shape` is
+
+    hi, lo = i >> 32, i & 0xFFFFFFFF          # i = flat row-major index
+    b1, b2 = threefry2x32((k1, k2), (hi, lo))
+    bits   = b1 ^ b2
+    u      = float32((bits >> 9) | 0x3F800000) - 1.0
+
+which is pure integer work, so it is reproduced here bit for bit with
+int64 tensor ops on the caller's device (no host round trip).  `rows`
+draws only some rows of a 2-D grid: row r column c takes flat index
+r * n_cols + c, exactly the element a full draw gathered at r holds.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.counters import MASK32
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD1_1BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """20-round threefry2x32 of the counter pairs (x1, x2) (int64 tensors
+    holding uint32 values) under the key (k1, k2)."""
+    k1 &= MASK32
+    k2 &= MASK32
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK32
+    x2 = (x2 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x1, x2
+
+
+def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    f = (bits >> 9) | 0x3F80_0000
+    return f.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_indices(key, index: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms at the given flat (int64) draw indices."""
+    k = np.asarray(key, dtype=np.uint32).reshape(2)
+    b1, b2 = threefry2x32(int(k[0]), int(k[1]), index >> 32,
+                          index & MASK32)
+    return _bits_to_uniform(b1 ^ b2)
+
+
+def uniform(key, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.uniform(np.asarray(key, np.uint32), shape)`, bit for bit."""
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return uniform_indices(key, idx).reshape(tuple(shape))
+
+
+def uniform_rows(key, total: int, n_cols: int, rows, device="cpu"
+                 ) -> torch.Tensor:
+    """Rows `rows` (host ints) of `uniform(key, (total, n_cols))`, drawn
+    directly: (R, n_cols) float32 on `device`."""
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    if rows.size and (rows.min() < 0 or rows.max() >= total):
+        raise ValueError(f"rows must lie in [0, {total})")
+    base = torch.from_numpy(rows * int(n_cols)).to(device)
+    cols = torch.arange(n_cols, dtype=torch.int64, device=device)
+    return uniform_indices(key, base[:, None] + cols[None, :])

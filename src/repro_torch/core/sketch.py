@@ -1,0 +1,190 @@
+"""Count-Min / Count-Min-Log sketch with conservative update (PyTorch).
+
+Counterpart of `repro/core/sketch.py`: the sketch geometry (`SketchSpec`,
+with the packed uint32-lane storage), a `Sketch` holding one (d, w) table,
+the paper's query (min over rows + Morris decode), and the sort +
+segment-sum dedup that turns an event batch into (key, multiplicity)
+pairs for the batched conservative update.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.counters import (CounterSpec, from_i64, pack_table,
+                                       to_i64, unpack_table, zeros)
+from repro_torch.core.hashing import as_i64, make_row_seeds, row_hashes
+
+_KEY_MAX = 0xFFFF_FFFF
+
+
+def as_uint32_keys(keys) -> np.ndarray:
+    """Validate and normalize event/probe keys to a flat uint32 array.
+
+    Floats, negatives, and values past 32 bits are rejected instead of
+    being silently truncated by a blind uint32 cast.  Host-side (NumPy).
+    """
+    if isinstance(keys, torch.Tensor):
+        if keys.dtype in (torch.uint16, torch.uint32):
+            keys = to_i64(keys)
+        keys = keys.detach().cpu().numpy()
+    arr = np.asarray(keys)
+    if arr.dtype == np.uint32:
+        return arr.ravel()
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise TypeError(f"keys must be integers, got dtype {arr.dtype}")
+    flat = arr.ravel()
+    if flat.size:
+        lo, hi = flat.min(), flat.max()
+        if lo < 0:
+            raise ValueError(f"keys must be non-negative, got {lo}")
+        if hi > _KEY_MAX:
+            raise ValueError(f"keys must fit in 32 bits, got {hi}")
+    return flat.astype(np.uint32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchSpec:
+    """Static sketch geometry: d rows x w columns of `counter` cells.
+
+    With packed=True the table is STORED as uint32 lanes holding
+    `counter.cells_per_lane` cells each; width stays the LOGICAL cell
+    count and the packed path is bit-identical to the unpacked one.
+    """
+
+    width: int
+    depth: int = 2
+    counter: CounterSpec = CounterSpec()
+    seed: int = 0x5EED
+    packed: bool = False
+
+    def __post_init__(self):
+        if self.packed and self.width % self.counter.cells_per_lane:
+            raise ValueError(
+                f"packed width {self.width} must be a multiple of "
+                f"cells_per_lane {self.counter.cells_per_lane}")
+
+    @property
+    def cells_per_lane(self) -> int:
+        """Cells per uint32 storage lane (1 unless packed)."""
+        return self.counter.cells_per_lane if self.packed else 1
+
+    @property
+    def storage_width(self) -> int:
+        """Last-axis length of the stored table (lanes, not cells)."""
+        return self.width // self.cells_per_lane
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return torch.uint32 if self.packed else self.counter.dtype
+
+    @property
+    def memory_bytes(self) -> int:
+        return self.width * self.depth * (self.counter.bits // 8)
+
+    @classmethod
+    def from_memory(cls, budget_bytes: int, depth: int = 2,
+                    counter: CounterSpec = CounterSpec(), seed: int = 0x5EED,
+                    packed: bool = False) -> "SketchSpec":
+        """Paper-style sizing: fixed byte budget, width derived from cell
+        size, rounded down to the reference's 128-cell (or 128-lane when
+        packed) alignment so both packages build the same geometry."""
+        cpl = counter.cells_per_lane if packed else 1
+        align = 128 * cpl
+        width = max(1, budget_bytes // (depth * (counter.bits // 8)))
+        if width >= align:
+            width -= width % align
+        elif packed:
+            width = max(cpl, width - width % cpl)
+        return cls(width=width, depth=depth, counter=counter, seed=seed,
+                   packed=packed)
+
+
+@dataclasses.dataclass
+class Sketch:
+    table: torch.Tensor  # (depth, storage_width) storage-layout states
+    spec: SketchSpec
+
+    @property
+    def row_seeds(self) -> torch.Tensor:
+        return make_row_seeds(self.spec.seed, self.spec.depth,
+                              device=self.table.device)
+
+
+def init(spec: SketchSpec, device="cpu") -> Sketch:
+    return Sketch(table=zeros((spec.depth, spec.storage_width),
+                              spec.storage_dtype, device), spec=spec)
+
+
+def logical_table(table: torch.Tensor, spec: SketchSpec) -> torch.Tensor:
+    """Stored table -> (..., d, width) int64 cell states."""
+    if not spec.packed:
+        return to_i64(table)
+    return unpack_table(table, spec.counter.bits)
+
+
+def storage_table(table: torch.Tensor, spec: SketchSpec) -> torch.Tensor:
+    """Logical int64 cell states -> the stored layout and dtype."""
+    if not spec.packed:
+        return from_i64(to_i64(table), spec.counter.dtype)
+    return pack_table(table, spec.counter.bits)
+
+
+# --------------------------------------------------------------------------
+# QUERY (paper Alg. 2)
+# --------------------------------------------------------------------------
+
+def query_state(sketch: Sketch, keys: torch.Tensor) -> torch.Tensor:
+    """min_k sk[k, h_k(e)] -- raw counter state per key, int64 (N,)."""
+    cols = row_hashes(keys, sketch.row_seeds, sketch.spec.width)  # (d, N)
+    rows = torch.arange(sketch.spec.depth, device=cols.device)[:, None]
+    table = logical_table(sketch.table, sketch.spec)
+    return table[rows, cols].min(dim=0).values
+
+
+def query(sketch: Sketch, keys: torch.Tensor) -> torch.Tensor:
+    """Estimated event counts (paper's VALUE of the min state), float32."""
+    return sketch.spec.counter.decode(query_state(sketch, keys))
+
+
+def query_stacked(tables: torch.Tensor, spec: SketchSpec, keys: torch.Tensor
+                  ) -> torch.Tensor:
+    """Multi-table query: tables (T, d, w), keys (T, N) -> (T, N)."""
+    return torch.stack([query(Sketch(table=t, spec=spec), k)
+                        for t, k in zip(tables, keys)])
+
+
+# --------------------------------------------------------------------------
+# batched-update input: sort + segment-sum dedup
+# --------------------------------------------------------------------------
+
+def _dedup(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort + segment-count. Returns (sorted_keys, n_at_first_occurrence)."""
+    return dedup_weighted(keys, torch.ones(keys.shape, dtype=torch.float32,
+                                           device=keys.device))
+
+
+def dedup_weighted(keys: torch.Tensor, weights: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted dedup along the last axis: sort keys, sum each key's
+    weights at its first slot.
+
+    keys (..., N) hold uint32 values; returns (sorted int64 keys, float32
+    total weight at each key's first occurrence, 0 elsewhere), so
+    duplicates and zero-weight entries are no-ops downstream.  Stable
+    sort plus a segment sum: the totals are sums of float32 weights, as
+    in the reference's `segment_sum`.
+    """
+    k = as_i64(keys)
+    sorted_keys, order = torch.sort(k, dim=-1, stable=True)
+    w_sorted = torch.gather(weights.to(torch.float32), -1, order)
+    start = torch.ones_like(sorted_keys, dtype=torch.bool)
+    start[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    seg = torch.cumsum(start.to(torch.int64), dim=-1) - 1
+    totals = torch.zeros_like(w_sorted).scatter_add_(-1, seg, w_sorted)
+    mult = torch.where(start, torch.gather(totals, -1, seg),
+                       torch.zeros_like(w_sorted))
+    return sorted_keys, mult

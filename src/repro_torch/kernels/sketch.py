@@ -1,0 +1,281 @@
+"""Wrappers of the hand-written CUDA sketch kernels, one per kernel.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+  * for CPU tensors, runs the kernel's plain PyTorch version
+    (`kernels/ref.py`);
+  * for CUDA tensors, launches its kernel on the current stream (the
+    library is built from `kernels/csrc/` at first use, see
+    `kernels/build.py`) and raises if the launch reports a CUDA error.
+    There is no fallback: a CUDA tensor is served by the kernel or the
+    call raises.
+
+Each wrapper carries a plain integer `launches` attribute, bumped once
+where it launches its kernel and nowhere else, so a run can show that
+the main path went through the kernels (`kernel_launches`,
+`reset_kernel_launches`).
+
+| wrapper              | replaces (src/repro/kernels/sketch.py)  |
+|----------------------|------------------------------------------|
+| `fused_query`        | `fused_query_pallas` :298               |
+| `fused_update_score` | `fused_update_score_pallas` :422        |
+| `queue_append`       | `queue_append_pallas` :526              |
+| `queue_append_dense` | `queue_append_dense_pallas` :587        |
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.counters import CounterSpec
+from repro_torch.kernels import build, ref
+
+CHUNK = 1024   # keys per sequential update step: part of the semantics
+MAX_DEPTH = 8  # CML_MAX_DEPTH in csrc/common.cuh
+
+_KEY_DTYPES = (torch.uint32, torch.int32)
+
+
+def _seed_tensor(seeds: tuple, device) -> torch.Tensor:
+    return torch.tensor(seeds, dtype=torch.int64, device=device)
+
+
+def _seed_array(seeds: tuple):
+    return (ctypes.c_uint32 * len(seeds))(*seeds)
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _device_kind(*tensors: torch.Tensor) -> str:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _table_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
+                    cpl: int) -> int:
+    """Validate a (T, d, sw) table stack; return 32-bit words per row."""
+    _need(tables.dim() == 3, f"tables must be (T, d, sw), got "
+                             f"{tuple(tables.shape)}")
+    want = torch.uint32 if cpl > 1 else counter.dtype
+    _need(tables.dtype == want, f"tables dtype {tables.dtype}, expected "
+                                f"{want}")
+    _need(tables.shape[2] * cpl == width,
+          f"table rows hold {tables.shape[2] * cpl} cells, width {width}")
+    _need(1 <= tables.shape[1] <= MAX_DEPTH,
+          f"depth {tables.shape[1]} outside [1, {MAX_DEPTH}]")
+    _need(tables.is_contiguous(), "tables must be contiguous")
+    bits = counter.bits
+    _need(width * bits % 32 == 0,
+          f"kernel rows are read as 32-bit words: width {width} x {bits} "
+          "bits must be a multiple of 32")
+    return width * bits // 32
+
+
+def _counter_args(counter: CounterSpec):
+    return (counter.bits, int(counter.kind == "log"), counter.max_state,
+            counter.logb if counter.kind == "log" else 0.0,
+            counter.bm1 if counter.kind == "log" else 0.0)
+
+
+def _keys_ok(name: str, keys: torch.Tensor, shape) -> None:
+    _need(keys.dtype in _KEY_DTYPES,
+          f"{name} must be uint32 or int32 on CUDA, got {keys.dtype}")
+    _need(tuple(keys.shape) == tuple(shape),
+          f"{name} shape {tuple(keys.shape)}, expected {tuple(shape)}")
+    _need(keys.is_contiguous(), f"{name} must be contiguous")
+
+
+# --------------------------------------------------------------------------
+# fused query
+# --------------------------------------------------------------------------
+
+def fused_query(tables: torch.Tensor, keys: torch.Tensor, *, seeds: tuple,
+                width: int, counter: CounterSpec, cpl: int = 1
+                ) -> torch.Tensor:
+    """Multi-tenant query: tables (T, d, sw), keys (T, N) -> float32 (T, N)."""
+    kind = _device_kind(tables, keys)
+    wpr = _table_geometry(tables, width, counter, cpl)
+    t, d, _ = tables.shape
+    _need(keys.dim() == 2 and keys.shape[0] == t,
+          f"keys must be (T={t}, N), got {tuple(keys.shape)}")
+    _need(len(seeds) == d, f"{len(seeds)} seeds for depth {d}")
+    if kind == "cpu":
+        return ref.fused_query_plain(tables, keys, _seed_tensor(seeds, "cpu"),
+                                     width, counter, cpl)
+    n = keys.shape[1]
+    _keys_ok("keys", keys, (t, n))
+    out = torch.empty((t, n), dtype=torch.float32, device=tables.device)
+    rc = build.load().cml_fused_query(
+        tables.data_ptr(), t, d, wpr, keys.data_ptr(), n, out.data_ptr(),
+        _seed_array(seeds), width, *_counter_args(counter),
+        _stream(tables.device))
+    _check_cuda("fused_query", rc)
+    fused_query.launches += 1
+    return out
+
+
+fused_query.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fused update + score (the flush epoch)
+# --------------------------------------------------------------------------
+
+def fused_update_score(tables: torch.Tensor, keys: torch.Tensor,
+                       mult: torch.Tensor, uniforms: torch.Tensor,
+                       cand: torch.Tensor, rows: torch.Tensor, *,
+                       seeds: tuple, width: int, counter: CounterSpec,
+                       cpl: int = 1):
+    """Single-launch flush epoch, IN PLACE on `tables`.
+
+    tables (T, d, sw); keys/mult/uniforms (R, N) pre-deduplicated
+    batches (mult == 0 entries are no-ops); cand (R, M) candidate keys;
+    rows (R,) int32 target rows, unique.  Each row's update runs
+    CHUNK-sequentially, then its candidates are scored against the
+    updated row.  Returns (tables, float32 (R, M) estimates).
+    """
+    kind = _device_kind(tables, keys, mult, uniforms, cand, rows)
+    wpr = _table_geometry(tables, width, counter, cpl)
+    t, d, _ = tables.shape
+    _need(keys.dim() == 2, f"keys must be (R, N), got {tuple(keys.shape)}")
+    r, n = keys.shape
+    _need(tuple(mult.shape) == (r, n) and tuple(uniforms.shape) == (r, n),
+          "mult and uniforms must match keys' (R, N)")
+    _need(cand.dim() == 2 and cand.shape[0] == r,
+          f"cand must be (R={r}, M), got {tuple(cand.shape)}")
+    _need(tuple(rows.shape) == (r,), f"rows must be (R={r},)")
+    _need(len(seeds) == d, f"{len(seeds)} seeds for depth {d}")
+    if kind == "cpu":
+        return ref.update_score_rows_ref(
+            tables, keys, mult, uniforms, rows, cand,
+            _seed_tensor(seeds, "cpu"), counter, CHUNK, cpl=cpl)
+    m = cand.shape[1]
+    _keys_ok("keys", keys, (r, n))
+    _keys_ok("cand", cand, (r, m))
+    for name, x in (("mult", mult), ("uniforms", uniforms)):
+        _need(x.dtype == torch.float32 and x.is_contiguous(),
+              f"{name} must be contiguous float32")
+    _need(rows.dtype == torch.int32 and rows.is_contiguous(),
+          "rows must be contiguous int32")
+    est = torch.empty((r, m), dtype=torch.float32, device=tables.device)
+    rc = build.load().cml_fused_update_score(
+        tables.data_ptr(), d, wpr, rows.data_ptr(), r, keys.data_ptr(),
+        mult.data_ptr(), uniforms.data_ptr(), n, cand.data_ptr(),
+        est.data_ptr(), m, _seed_array(seeds), width,
+        *_counter_args(counter), _stream(tables.device))
+    _check_cuda("fused_update_score", rc)
+    fused_update_score.launches += 1
+    return tables, est
+
+
+fused_update_score.launches = 0
+
+
+# --------------------------------------------------------------------------
+# device-ring appends
+# --------------------------------------------------------------------------
+
+def _append_meta(queue: torch.Tensor, keys: torch.Tensor, fill, count,
+                 n_rows: int):
+    _need(queue.dim() == 2 and queue.dtype == torch.uint32,
+          "queue must be a (T, capw) uint32 ring")
+    _need(queue.is_contiguous(), "queue must be contiguous")
+    _need(keys.dim() == 2 and keys.shape[0] == n_rows,
+          f"keys must be (R={n_rows}, N), got {tuple(keys.shape)}")
+    fill = np.asarray(fill, np.int64).reshape(-1)
+    count = np.asarray(count, np.int64).reshape(-1)
+    _need(fill.shape == (n_rows,) and count.shape == (n_rows,),
+          "fill and count need one entry per batch row")
+    _need(bool((fill >= 0).all() and (count >= 0).all()),
+          "fill and count must be non-negative")
+    _need(bool((count <= keys.shape[1]).all()),
+          "count exceeds the batch width")
+    _need(bool((fill + count <= queue.shape[1]).all()),
+          "fill + count exceeds the ring width")
+    return fill, count
+
+
+def queue_append(queue: torch.Tensor, keys: torch.Tensor, rows, fill,
+                 count) -> torch.Tensor:
+    """Row-mapped ring append, IN PLACE: ring row rows[i] takes
+    keys[i, :count[i]] at columns fill[i]...  queue (T, capw) uint32;
+    keys (R, N); rows/fill/count (R,) host integers, rows unique."""
+    kind = _device_kind(queue, keys)
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    fill, count = _append_meta(queue, keys, fill, count, rows.shape[0])
+    _need(bool(((rows >= 0) & (rows < queue.shape[0])).all()),
+          "rows outside the ring")
+    _need(np.unique(rows).size == rows.size, "rows must be unique")
+    if kind == "cpu":
+        return ref.queue_append_plain(queue, keys, torch.from_numpy(rows),
+                                      torch.from_numpy(fill),
+                                      torch.from_numpy(count))
+    _keys_ok("keys", keys, keys.shape)
+    meta = torch.from_numpy(np.stack([rows, fill, count]).astype(
+        np.int32)).to(queue.device)
+    rc = build.load().cml_queue_append(
+        queue.data_ptr(), queue.shape[1], keys.data_ptr(), rows.shape[0],
+        keys.shape[1], int(count.max(initial=0)), meta[0].data_ptr(),
+        meta[1].data_ptr(), meta[2].data_ptr(), _stream(queue.device))
+    _check_cuda("queue_append", rc)
+    queue_append.launches += 1
+    return queue
+
+
+queue_append.launches = 0
+
+
+def queue_append_dense(queue: torch.Tensor, keys: torch.Tensor, fill,
+                       count) -> torch.Tensor:
+    """Whole-plane ring append (batch row i -> ring row i), IN PLACE."""
+    kind = _device_kind(queue, keys)
+    fill, count = _append_meta(queue, keys, fill, count, queue.shape[0])
+    if kind == "cpu":
+        return ref.queue_append_dense_plain(queue, keys,
+                                            torch.from_numpy(fill),
+                                            torch.from_numpy(count))
+    _keys_ok("keys", keys, keys.shape)
+    meta = torch.from_numpy(np.stack([fill, count]).astype(
+        np.int32)).to(queue.device)
+    rc = build.load().cml_queue_append_dense(
+        queue.data_ptr(), queue.shape[1], keys.data_ptr(), queue.shape[0],
+        keys.shape[1], int(count.max(initial=0)), meta[0].data_ptr(),
+        meta[1].data_ptr(), _stream(queue.device))
+    _check_cuda("queue_append_dense", rc)
+    queue_append_dense.launches += 1
+    return queue
+
+
+queue_append_dense.launches = 0
+
+KERNELS = (fused_query, fused_update_score, queue_append, queue_append_dense)
+
+
+def kernel_launches() -> dict[str, int]:
+    """{kernel wrapper name: launches} since the last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_kernel_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0

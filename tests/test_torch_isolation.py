@@ -1,0 +1,73 @@
+"""The port stands alone: no JAX, no `repro`, and no silent CPU fallback.
+
+A fresh interpreter imports every `repro_torch` module and
+`chip_smoke.py` and must end with neither `jax` nor `repro` (nor any
+`repro.*` module) loaded.  Entry points that are not given a device run
+on CUDA, so where there is no GPU they raise instead of carrying on on
+the CPU, and `chip_smoke.py` exits non-zero and prints no result there.
+"""
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, json, pkgutil, runpy, sys
+sys.path.insert(0, {src!r})
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+runpy.run_path({smoke!r}, run_name="chip_smoke_import_check")
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(json.dumps({{"modules": mods, "bad": bad}}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_or_repro():
+    code = _PROBE.format(src=str(SRC), smoke=str(ROOT / "chip_smoke.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for m in ("repro_torch.stream.service", "repro_torch.kernels.sketch",
+              "repro_torch.kernels.build", "repro_torch.convert",
+              "repro_torch.launch.serve_counts", "repro_torch.core.prng"):
+        assert m in res["modules"]
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: CUDA entry points run instead of "
+                    "raising")
+
+
+def test_entry_points_without_device_raise_without_cuda(no_cuda):
+    from repro_torch.core import CMLS16, SketchSpec
+    from repro_torch.launch import serve_counts
+    from repro_torch.stream import CountService, TenantPlane
+    spec = SketchSpec(width=256, counter=CMLS16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CountService(spec, tenants=["a"], track_top=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TenantPlane(spec, 128, track_top=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_counts.main(["--tenants", "1", "--epochs", "1"])
+
+
+def test_chip_smoke_fails_without_cuda(no_cuda):
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -31,7 +31,27 @@ exit, no result line) if anything disagrees:
   4. times   -- CUDA-event times of each kernel, its plain version and,
                 where one exists, a single PyTorch call computing the same
                 function; the end-to-end ingest rate and the query_all
-                latency.
+                latency;
+  5. kernels 5-9 -- fused_update, fused_update_rows and the three window
+                queries against their plain versions on the card, at the
+                full-size shapes of the paths below, all five storage
+                formats, both window modes, exact;
+  6. paths   -- the windowed service (32 windowed CMLS16 tenants x 8
+                buckets of 60 s, a 1 GiB leaf, track_top=64, beside the
+                CMS32 metrics plane) through 12 epochs of serve_counts'
+                event-time stream (rotations by one interval, several,
+                and a full clear, each with pending fill), then flush,
+                query_all, query (n_buckets, max, gamma) and topk; and the
+                64 CMLS16 tenants without tracking (one all-active epoch,
+                one skewed epoch of two fill classes).  Each path runs with
+                its launch counts set to 0 just before and read just
+                after, its dispatch audit checked, then again on the plain
+                engine: leaves, cursors, watermarks, rings, fills,
+                trackers and answers must be equal;
+  7. times   -- CUDA-event times of kernels 5-9 beside their plain
+                versions and bytes bounds; the windowed ingest rate and
+                query_all latency with kernels and with the plain engine;
+                one windowed epoch under torch.profiler.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -59,6 +79,11 @@ MICRO = 8
 BATCH = RING // MICRO       # events per tenant per microbatch
 PROBES = 1024
 SEED = 0
+WINDOW_TENANTS = 32         # trending_00..31, WindowSpec(CMLS16, 8, 60 s)
+WINDOW_BUCKETS = 8
+WINDOW_EPOCHS = 12
+OUTAGE_EPOCH = 6            # event time jumps OUTAGE seconds before it
+OUTAGE = 600.0              # ten intervals: more than the 8-bucket ring
 
 
 def fail(msg: str) -> None:
@@ -100,18 +125,17 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def profile_epoch(svc, many) -> dict:
+def profile_epoch(drive) -> dict:
     """Device time by kernel, and host time by op, over one ingest epoch
-    (the microbatches' `enqueue_many` + `flush`), from torch.profiler; the
-    device's idle share is 1 - busy / wall over the same window."""
+    (`drive()`: the microbatches' `enqueue_many` + `flush`), from
+    torch.profiler; the device's idle share is 1 - busy / wall over the
+    same window."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for events in many:
-            svc.enqueue_many(events)
-        svc.flush()
+        drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device_rows, host_rows = [], []
@@ -133,6 +157,567 @@ def profile_epoch(svc, many) -> dict:
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall * 1e3),
             "device_top": top(device_rows), "host_top": top(host_rows)}
+
+
+def sectors(spec, keys_i64, mask=None) -> int:
+    """Distinct 32-byte sectors the keys' cells occupy, per table row."""
+    from repro_torch.core.hashing import row_hashes
+    from repro_torch.kernels import ops
+    dev = keys_i64.device
+    cols = row_hashes(keys_i64, ops._seed_tensor(spec, dev), spec.width)
+    d, r, n = cols.shape                                       # (d, R, N)
+    word_bytes = 4
+    cells_per_word = 32 // spec.counter.bits
+    sec = (cols // cells_per_word) * word_bytes // SECTOR
+    rid = (torch.arange(r, device=dev)[None, :, None] * d
+           + torch.arange(d, device=dev)[:, None, None])
+    flat = rid * (1 << 40) + sec
+    if mask is not None:
+        flat = flat[:, mask]
+    return int(torch.unique(flat).numel())
+
+
+def summary(xs) -> dict:
+    xs = np.sort(np.asarray(xs))
+    out = {"n": int(xs.size), "median": float(np.median(xs)),
+           "min": float(xs[0]), "max": float(xs[-1])}
+    if xs.size >= 200:  # p95 with at least ten samples beyond it
+        out["p95"] = float(np.percentile(xs, 95))
+    return out
+
+
+# ---- phases of the windowed and untracked paths (slice 2) ------------------
+
+def i64(keys: torch.Tensor) -> torch.Tensor:
+    """uint32 keys as int64 values."""
+    return keys.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def window_flush_inputs(dev, rng, buckets):
+    """Per bucket in `buckets`: one window flush's kernel inputs for the
+    32 windowed tenants: two microbatches of serve_counts' Zipf traffic
+    per tenant (what one 60 s interval gathers), deduplicated, and the
+    flush's uniforms over the (32, N) tenant grid."""
+    from repro_torch.core import prng
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_counts as sc
+    out = []
+    for i, c in enumerate(buckets):
+        pairs, _ = sc.make_trending(rng, WINDOW_TENANTS, 2, BATCH, 0.0)
+        raw = np.stack([np.concatenate([ev[n] for ev, _ in pairs])
+                        for n in sc.trending_names(WINDOW_TENANTS)])
+        keys = from_numpy(raw, dev)
+        skeys, mult = sk.dedup_weighted(
+            keys, torch.ones(keys.shape, dtype=torch.float32, device=dev))
+        unif = prng.uniform_rows([SEED, 100 + i], WINDOW_TENANTS,
+                                 keys.shape[1], np.arange(WINDOW_TENANTS),
+                                 device=dev)
+        rows = np.arange(WINDOW_TENANTS) * WINDOW_BUCKETS + c
+        out.append(dict(skeys=skeys, keys=ops.as_device_keys(skeys, dev),
+                        mult=mult, unif=unif, rows=rows))
+    return out
+
+
+def check_slice2_kernels(dev, formats, epoch_keys) -> tuple[dict, dict]:
+    """Kernels 5-9 against their plain versions on the card, at the
+    full-size shapes of the untracked and windowed paths, in every
+    storage format: states and estimates bit for bit.  Returns (max abs
+    error per kernel, CMLS16 inputs for the timings)."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.core import prng
+    from repro_torch.core.counters import from_numpy, signed_view, zeros
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    from repro_torch.stream import window as w
+    rng = np.random.default_rng(SEED + 3)
+    errs = dict.fromkeys(("fused_update", "fused_update_rows", "window_query",
+                          "window_query_stacked",
+                          "window_query_stacked_rows"), 0.0)
+    keep = {}
+    keys = epoch_keys[0]
+    skeys, mult = sk.dedup_weighted(
+        keys, torch.ones(keys.shape, dtype=torch.float32, device=dev))
+    skeys_u = ops.as_device_keys(skeys, dev)
+    unif = prng.uniform_rows([SEED, 7], TENANTS, keys.shape[1],
+                             np.arange(TENANTS), device=dev)
+    flushes = window_flush_inputs(dev, rng, (0, 3, 5))
+    probes = from_numpy(sc.probes_for(0, PROBES, WINDOW_TENANTS)[2:], dev)
+    last = flushes[-1]
+    cand = torch.cat([signed_view(probes[:, :TRACK_TOP]),
+                      signed_view(last["keys"])], dim=1).view(torch.uint32)
+    refresh_rows = np.arange(WINDOW_TENANTS)[::-1].copy()
+    weight_sets = [
+        ("full window", w.window_weights_stacked(
+            np.full(WINDOW_TENANTS, 5), WINDOW_BUCKETS, device=dev)),
+        ("n_buckets=3", w.window_weights_stacked(
+            np.full(WINDOW_TENANTS, 5), WINDOW_BUCKETS, n_buckets=3,
+            device=dev)),
+        ("gamma=0.9", w.window_weights_stacked(
+            np.arange(WINDOW_TENANTS) % WINDOW_BUCKETS, WINDOW_BUCKETS,
+            gamma=0.9, device=dev)),
+    ]
+
+    def same(name, what, a, b):
+        ok = torch.equal(signed_view(a), signed_view(b))
+        err = 0.0
+        if a.dtype == torch.float32:
+            err = float((a - b).abs().max())
+            errs[name] = max(errs[name], err)
+        if not ok:
+            fail(f"{name} {what} differs from its plain version (max abs "
+                 f"{err})")
+
+    for fname, counter, packed in formats:
+        spec = sk.SketchSpec.from_memory(BUDGET, depth=2, counter=counter,
+                                         packed=packed)
+        kw = dict(seeds=ops._seeds_tuple(spec), width=spec.width,
+                  counter=spec.counter, cpl=spec.cells_per_lane)
+        seed_t = ops._seed_tensor(spec, dev)
+        # kernel 5: the untracked all-active flush, 64 x 4 MiB
+        tk = zeros((TENANTS, 2, spec.storage_width), spec.storage_dtype, dev)
+        tp = tk.clone()
+        ksk.fused_update(tk, skeys_u, mult, unif, **kw)
+        ref.fused_update_plain(tp, skeys, mult, unif, seed_t, spec.counter,
+                               ksk.CHUNK, cpl=spec.cells_per_lane)
+        torch.cuda.synchronize()
+        same("fused_update", fname, tk, tp)
+        if fname == "CMLS16":
+            keep["update"] = dict(spec=spec, skeys=skeys, keys=skeys_u,
+                                  mult=mult, unif=unif, tables=tk.clone())
+        del tk, tp
+        # kernel 6: the window flush on the flat (32*8, d, w) leaf view
+        shape = (WINDOW_TENANTS, WINDOW_BUCKETS, 2, spec.storage_width)
+        lk = zeros(shape, spec.storage_dtype, dev)
+        lp = lk.clone()
+        flat_k = lk.view((-1,) + shape[2:])
+        flat_p = lp.view((-1,) + shape[2:])
+        for f in flushes:
+            if fname == "CMLS16" and f is last:
+                keep["rows"] = dict(spec=spec, flat=flat_k.clone(), **f)
+            ksk.fused_update_rows(flat_k, f["keys"], f["mult"], f["unif"],
+                                  f["rows"], **kw)
+            ref.fused_update_rows_plain(
+                flat_p, f["skeys"], f["mult"], f["unif"],
+                torch.from_numpy(f["rows"]).to(dev), seed_t, spec.counter,
+                ksk.CHUNK, cpl=spec.cells_per_lane)
+            torch.cuda.synchronize()
+            same("fused_update_rows", f"{fname} leaf", lk, lp)
+        del lp, flat_p
+        # kernels 7, 8, 9 on the filled leaf, both modes
+        qkw = dict(width=spec.width, counter=spec.counter,
+                   cpl=spec.cells_per_lane)
+        for mode in ("sum", "max"):
+            for wname, wts in weight_sets:
+                what = f"{fname} {mode} {wname}"
+                got = ksk.window_query_stacked(lk, probes, wts, mode=mode,
+                                               seeds=kw["seeds"], **qkw)
+                want = ref.window_query_stacked_plain(lk, probes, wts, seed_t,
+                                                      mode=mode, **qkw)
+                same("window_query_stacked", what, got, want)
+                rw = wts[refresh_rows].contiguous()
+                got = ksk.window_query_stacked_rows(
+                    lk, cand, rw, refresh_rows, mode=mode,
+                    seeds=kw["seeds"], **qkw)
+                want = ref.window_query_stacked_rows_plain(
+                    lk, cand, rw, torch.from_numpy(refresh_rows).to(dev),
+                    seed_t, mode=mode, **qkw)
+                same("window_query_stacked_rows", what, got, want)
+                got = ksk.window_query(lk[0], probes[0], wts[0], mode=mode,
+                                       seeds=kw["seeds"], **qkw)
+                want = ref.window_query_plain(lk[0], probes[0], wts[0],
+                                              seed_t, mode=mode, **qkw)
+                same("window_query", what, got, want)
+        log(f"kernels 5-9 {fname}: fused_update tables, fused_update_rows "
+            f"leaf (3 flushes), window_query / _stacked / _stacked_rows "
+            "(sum and max, 3 weight sets) equal to their plain versions")
+        if fname == "CMLS16":
+            keep["window"] = dict(spec=spec, leaf=lk, probes=probes,
+                                  cand=cand, rows=refresh_rows,
+                                  weights=weight_sets[0][1])
+        else:
+            del lk
+    return errs, keep
+
+
+def window_stream():
+    """The windowed path's traffic: WINDOW_EPOCHS epochs of serve_counts'
+    `metrics_qps` microbatches, each followed by a windowed microbatch of
+    BATCH Zipf keys per windowed tenant at event time ts += exponential(25
+    s).  Before epoch OUTAGE_EPOCH the event time jumps OUTAGE seconds (a
+    producer outage longer than the ring), so the rings rotate by one
+    interval, by several, and by more than B (a full clear)."""
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 2)
+    epochs, ts = [], 0.0
+    for e in range(WINDOW_EPOCHS):
+        many, _ = sc.make_epoch(rng, 0, MICRO, BATCH)
+        if e == OUTAGE_EPOCH:
+            ts += OUTAGE
+        pairs, ts = sc.make_trending(rng, WINDOW_TENANTS, MICRO, BATCH, ts)
+        epochs.append((many, pairs))
+    return epochs
+
+
+def drive_window_epoch(svc, many, pairs) -> None:
+    for events, (win_events, ts) in zip(many, pairs):
+        svc.enqueue_many(events)
+        svc.enqueue_many(win_events, ts=ts)
+    svc.flush()
+
+
+def run_window_path(spec, engine: str, dev, stream, probes):
+    """The windowed service at full size (32 x 8 x 4 MiB leaf beside the
+    CMS32 metrics plane) through the stream, with the dispatch audit of
+    every windowed microbatch; then flush, query_all, query and topk."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_counts as sc
+    from repro_torch.stream import tiering
+    svc = sc.build_service(spec, 0, RING, SEED, TRACK_TOP, device=dev,
+                           engine=engine, trending=WINDOW_TENANTS)
+    plane = svc.planes[-1]
+    steps_seen = {}
+    for many, pairs in stream:
+        for events, (win_events, ts) in zip(many, pairs):
+            svc.enqueue_many(events)
+            before = plane.epochs[0]
+            pending = plane.pending()
+            active = np.flatnonzero(plane.ring.fill)
+            classes = len(tiering.fill_classes(plane.ring.fill, active,
+                                               plane.ring.queue.shape[1]))
+            with ops.audit_scope() as t:
+                svc.enqueue_many(win_events, ts=ts)
+            steps = 0 if before is None else plane.epochs[0] - before
+            want = {"queue_append": 1}
+            if steps:
+                want["window_advance_rows"] = 1
+                if pending:
+                    want.update(update_rows=classes, window_query_stacked=1)
+                steps_seen[steps] = steps_seen.get(steps, 0) + 1
+            if dict(t) != want:
+                fail(f"windowed microbatch at ts {ts:.1f} (rotation of "
+                     f"{steps}, {pending} pending): dispatch audit "
+                     f"{dict(t)} != {want}")
+    tallies = {}
+    with ops.audit_scope() as t:
+        svc.flush()
+    tallies["flush"] = dict(t)
+    reads = {}
+    for name, call in (
+            ("query_all", lambda: svc.query_all(probes)),
+            ("query", lambda: svc.query("trending_00", probes[2],
+                                        n_buckets=3)),
+            ("query_max", lambda: svc.query("trending_00", probes[2],
+                                            mode="max")),
+            ("query_gamma", lambda: svc.query("trending_00", probes[2],
+                                              gamma=0.9)),
+            ("topk", lambda: svc.topk("trending_00", n_buckets=3))):
+        with ops.audit_scope() as t:
+            reads[name] = call()
+        tallies[name] = dict(t)
+    torch.cuda.synchronize()
+    return svc, reads, tallies, steps_seen
+
+
+def run_untracked_path(spec, engine: str, dev, epochs, probes):
+    """The 64 CMLS16 tenants without tracking: an epoch where every
+    tenant is active in one fill class, then one where tenants 0-15 are
+    active in two fill classes (8,192 and 24,576 keys)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_counts as sc
+    svc = sc.build_service(spec, TENANTS, RING, SEED, None, device=dev,
+                           engine=engine)
+    tallies = {}
+    for name, many in epochs:
+        for events in many:
+            svc.enqueue_many(events)
+        with ops.audit_scope() as t:
+            svc.flush()
+        tallies[name] = dict(t)
+    with ops.audit_scope() as t:
+        counts = svc.query_all(probes)
+    tallies["query_all"] = dict(t)
+    torch.cuda.synchronize()
+    return svc, counts, tallies
+
+
+def untracked_epochs():
+    """The untracked path's two epochs: every tenant with MICRO
+    microbatches (one fill class); then tenants 0-15, the first half with
+    one microbatch and the second with three (two fill classes)."""
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 4)
+    active = min(16, TENANTS)
+    uniform, _ = sc.make_epoch(rng, TENANTS, MICRO, BATCH)
+    skewed, _ = sc.make_epoch(rng, active, 3, BATCH)
+    heavy = {f"tenant_{t:02d}" for t in range(active // 2, active)}
+    uniform = [{k: v for k, v in ev.items() if k.startswith("tenant_")}
+               for ev in uniform]
+    skewed = [{k: v for k, v in ev.items()
+               if k.startswith("tenant_") and (i == 0 or k in heavy)}
+              for i, ev in enumerate(skewed)]
+    return [("uniform", uniform), ("skewed", skewed)]
+
+
+def compare_services(a, b, what: str) -> None:
+    from repro_torch.convert import service_to_numpy
+    _, ta = service_to_numpy(a)
+    _, tb = service_to_numpy(b)
+    for kind in ("planes", "windows"):
+        for i, (la, lb) in enumerate(zip(ta[kind], tb[kind])):
+            for key, va in la.items():
+                vb = lb[key]
+                pairs = (va.items() if isinstance(va, dict)
+                         else [(key, va)])
+                for sub, x in pairs:
+                    y = vb[sub] if isinstance(va, dict) else vb
+                    if not np.array_equal(x, y):
+                        fail(f"{what}: {kind}[{i}] {key} {sub}: auto and "
+                             f"plain engines differ "
+                             f"({int(np.sum(x != y))} entries)")
+
+
+def slice2_paths(dev, spec, probes_win, probes_flat):
+    """Phase 6: the windowed and the untracked services at full size with
+    engine="auto", then "plain", on the card; launch counts per path."""
+    from repro_torch.kernels import sketch as ksk
+    stream = window_stream()
+    ksk.reset_kernel_launches()
+    wsvc, wreads, wtallies, steps_seen = run_window_path(
+        spec, "auto", dev, stream, probes_win)
+    win_launches = ksk.kernel_launches()
+    log(f"windowed path kernel launches: {win_launches}")
+    log(f"windowed path: rotations by steps {steps_seen}; dispatch tallies "
+        f"{wtallies}")
+    if not (1 in steps_seen and any(1 < k < WINDOW_BUCKETS
+                                    for k in steps_seen)
+            and any(k >= WINDOW_BUCKETS for k in steps_seen)):
+        fail(f"the stream did not rotate by one, several and >= B "
+             f"intervals: {steps_seen}")
+    want = {"query_all": {"query_many": 1, "window_query_stacked": 1},
+            "query": {"window_query": 1}, "query_max": {"window_query": 1},
+            "query_gamma": {"window_query": 1},
+            "topk": {"window_query_stacked": 1}}
+    for k, v in want.items():
+        if wtallies[k] != v:
+            fail(f"windowed {k} dispatch audit {wtallies[k]} != {v}")
+    if wtallies["flush"].get("window_query_stacked") != 1 or \
+            "update_rows" not in wtallies["flush"]:
+        fail(f"windowed flush audit {wtallies['flush']}")
+    for name, est in wreads["query_all"].items():
+        if est.shape != (PROBES,) or not bool(torch.isfinite(est).all()):
+            fail(f"windowed query_all[{name}] not finite (N,)")
+    hot, hot_est = wreads["topk"]
+    if len(hot) == 0 or not (np.diff(hot_est) <= 0).all():
+        fail("windowed topk empty or not descending")
+    psvc, preads, ptallies, psteps = run_window_path(
+        spec, "plain", dev, stream, probes_win)
+    compare_services(wsvc, psvc, "windowed path")
+    for k in ("query", "query_max", "query_gamma"):
+        if not torch.equal(wreads[k], preads[k]):
+            fail(f"windowed {k}: auto and plain differ")
+    for n in wreads["query_all"]:
+        if not torch.equal(wreads["query_all"][n], preads["query_all"][n]):
+            fail(f"windowed query_all[{n}]: auto and plain differ")
+    if not all(np.array_equal(x, y)
+               for x, y in zip(wreads["topk"], preads["topk"])):
+        fail("windowed topk: auto and plain differ")
+    if ptallies != wtallies or psteps != steps_seen:
+        fail("windowed path: plain-engine audit differs")
+    log("windowed path: engine='plain' on the card gives equal leaves, "
+        "cursors, watermarks, rings, fills, trackers and answers; top-3 "
+        f"{[(int(k), float(v)) for k, v in zip(hot[:3], hot_est[:3])]}")
+    del psvc
+
+    epochs = untracked_epochs()
+    ksk.reset_kernel_launches()
+    usvc, ucounts, utallies = run_untracked_path(spec, "auto", dev, epochs,
+                                                 probes_flat)
+    flat_launches = ksk.kernel_launches()
+    log(f"untracked path kernel launches: {flat_launches}")
+    log(f"untracked path dispatch tallies: {utallies}")
+    want = {"uniform": {"update_many": 1}, "skewed": {"update_rows": 2},
+            "query_all": {"query_many": 2}}
+    if utallies != want:
+        fail(f"untracked dispatch audit {utallies} != {want}")
+    psvc, pcounts, ptallies = run_untracked_path(spec, "plain", dev, epochs,
+                                                 probes_flat)
+    compare_services(usvc, psvc, "untracked path")
+    for n in ucounts:
+        if not torch.equal(ucounts[n], pcounts[n]):
+            fail(f"untracked query_all[{n}]: auto and plain differ")
+    log("untracked path: engine='plain' on the card gives equal tables and "
+        "answers")
+    for path, launches, names in (
+            ("windowed", win_launches,
+             ("fused_update_rows", "window_query", "window_query_stacked",
+              "window_query_stacked_rows")),
+            ("untracked", flat_launches,
+             ("fused_update", "fused_update_rows"))):
+        missing = [k for k in names if launches[k] == 0]
+        if missing:
+            fail(f"kernels not launched on the {path} path: {missing}")
+    del psvc, usvc
+    return wsvc, stream, win_launches, flat_launches
+
+
+def window_times(dev, wsvc, keep, stream_rng, ts: float
+                 ) -> tuple[dict, dict]:
+    """Phase 7: CUDA-event times of kernels 5-9 beside their plain
+    versions and bytes bounds; the windowed ingest rate and query_all
+    latency with kernels and with the plain engine; one windowed epoch
+    under torch.profiler."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_counts as sc
+    report = {}
+    u = keep["update"]
+    spec = u["spec"]
+    seeds = ops._seeds_tuple(spec)
+    seed_t = ops._seed_tensor(spec, dev)
+    kw = dict(seeds=seeds, width=spec.width, counter=spec.counter)
+    work = u["tables"].clone()
+    src = u["tables"]
+
+    def reset():
+        work.copy_(src)
+    r, n = u["keys"].shape
+    live = u["mult"] > 0
+    n_live = int(live.sum())
+    report["fused_update"] = dict(
+        ms=cuda_ms(lambda: ksk.fused_update(work, u["keys"], u["mult"],
+                                            u["unif"], **kw), 10,
+                   setup=reset),
+        plain_ms=cuda_ms(lambda: ref.fused_update_plain(
+            work, u["skeys"], u["mult"], u["unif"], seed_t, spec.counter,
+            ksk.CHUNK), 3, setup=reset),
+        bytes=r * n * 12 + 2 * sectors(spec, u["skeys"], mask=live) * SECTOR,
+        ops=n_live * (spec.depth * 14 + 60),
+        shape=f"tables {tuple(src.shape)} uint16, keys ({r}, {n}), "
+              f"{n_live} distinct")
+
+    f = keep["rows"]
+    flat = f["flat"].clone()
+    fsrc = f["flat"]
+    rows_t = torch.from_numpy(f["rows"]).to(dev)
+
+    def reset_flat():
+        flat.copy_(fsrc)
+    r, n = f["keys"].shape
+    live = f["mult"] > 0
+    n_live = int(live.sum())
+    report["fused_update_rows"] = dict(
+        ms=cuda_ms(lambda: ksk.fused_update_rows(
+            flat, f["keys"], f["mult"], f["unif"], f["rows"], **kw), 10,
+            setup=reset_flat),
+        plain_ms=cuda_ms(lambda: ref.fused_update_rows_plain(
+            flat, f["skeys"], f["mult"], f["unif"], rows_t, seed_t,
+            spec.counter, ksk.CHUNK), 3, setup=reset_flat),
+        bytes=r * n * 12 + r * 4
+        + 2 * sectors(spec, f["skeys"], mask=live) * SECTOR,
+        ops=n_live * (spec.depth * 14 + 60),
+        shape=f"flat leaf {tuple(fsrc.shape)} uint16, rows {r}, keys "
+              f"({r}, {n}), {n_live} distinct")
+
+    g = keep["window"]
+    leaf, probes, cand, rows = g["leaf"], g["probes"], g["cand"], g["rows"]
+    wts = g["weights"]
+    b = leaf.shape[1]
+    qkw = dict(width=spec.width, counter=spec.counter)
+    rw = wts[rows].contiguous()
+    rows_d = torch.from_numpy(rows).to(dev)
+
+    def qbytes(keys, n_rings):
+        n_keys = keys.numel()
+        return (n_keys * 8 + n_rings * b * 4
+                + b * sectors(spec, i64(keys)) * SECTOR)
+
+    def qops(keys):
+        return keys.numel() * b * (spec.depth * 12 + 30)
+    one_keys, one_w = probes[0].contiguous(), wts[0].contiguous()
+    report["window_query"] = dict(
+        ms=cuda_ms(lambda: ksk.window_query(leaf[0], one_keys, one_w,
+                                            seeds=seeds, **qkw), 50),
+        plain_ms=cuda_ms(lambda: ref.window_query_plain(
+            leaf[0], one_keys, one_w, seed_t, **qkw), 10),
+        bytes=qbytes(one_keys[None], 1), ops=qops(one_keys),
+        shape=f"ring {tuple(leaf.shape[1:])} uint16, keys ({PROBES},)")
+    report["window_query_stacked"] = dict(
+        ms=cuda_ms(lambda: ksk.window_query_stacked(leaf, probes, wts,
+                                                    seeds=seeds, **qkw), 50),
+        plain_ms=cuda_ms(lambda: ref.window_query_stacked_plain(
+            leaf, probes, wts, seed_t, **qkw), 10),
+        bytes=qbytes(probes, probes.shape[0]), ops=qops(probes),
+        shape=f"rings {tuple(leaf.shape)} uint16, keys "
+              f"{tuple(probes.shape)}")
+    report["window_query_stacked_rows"] = dict(
+        ms=cuda_ms(lambda: ksk.window_query_stacked_rows(
+            leaf, cand, rw, rows, seeds=seeds, **qkw), 20),
+        plain_ms=cuda_ms(lambda: ref.window_query_stacked_rows_plain(
+            leaf, cand, rw, rows_d, seed_t, **qkw), 5),
+        bytes=qbytes(cand, cand.shape[0]) + len(rows) * 4, ops=qops(cand),
+        shape=f"leaf {tuple(leaf.shape)} uint16, rows {len(rows)}, keys "
+              f"{tuple(cand.shape)}")
+    for rep in report.values():
+        rep["library_ms"] = None
+
+    # end to end on the windowed path
+    probes_all = sc.probes_for(0, PROBES, WINDOW_TENANTS)
+
+    def window_rate(svc, reps, ts):
+        rates = []
+        for _ in range(reps):
+            many, _ = sc.make_epoch(stream_rng, 0, MICRO, BATCH)
+            pairs, ts = sc.make_trending(stream_rng, WINDOW_TENANTS, MICRO,
+                                         BATCH, ts)
+            ev = sum(sum(v.size for v in m.values()) for m in many) + sum(
+                sum(v.size for v in p[0].values()) for p in pairs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drive_window_epoch(svc, many, pairs)
+            torch.cuda.synchronize()
+            rates.append(ev / (time.perf_counter() - t0))
+        return rates, ts
+
+    def window_query_ms(svc, reps):
+        svc.query_all(probes_all)
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.query_all(probes_all)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    spec_w = wsvc.planes[-1].spec
+    rates, ts = window_rate(wsvc, 11, ts)
+    e2e = {"window_ingest_events_per_s": summary(rates),
+           "window_query_all_ms": summary(window_query_ms(wsvc, 200))}
+    psvc = sc.build_service(spec_w, 0, RING, SEED, TRACK_TOP, device=dev,
+                            engine="plain", trending=WINDOW_TENANTS)
+    e2e["window_ingest_events_per_s_plain"] = summary(
+        window_rate(psvc, 3, 0.0)[0])
+    e2e["window_query_all_ms_plain"] = summary(window_query_ms(psvc, 20))
+    del psvc
+    log(f"windowed ingest events/s (8 x (enqueue_many metrics + "
+        f"enqueue_many {WINDOW_TENANTS} windowed x {BATCH} at ts) + flush): "
+        f"kernels {e2e['window_ingest_events_per_s']}, plain engine "
+        f"{e2e['window_ingest_events_per_s_plain']}")
+    log(f"windowed query_all ms ({len(probes_all)} x {PROBES} probes): "
+        f"kernels {e2e['window_query_all_ms']}, plain engine "
+        f"{e2e['window_query_all_ms_plain']}")
+    many, _ = sc.make_epoch(stream_rng, 0, MICRO, BATCH)
+    pairs, _ = sc.make_trending(stream_rng, WINDOW_TENANTS, MICRO, BATCH, ts)
+    e2e["profile_window_epoch"] = profile_epoch(
+        lambda: drive_window_epoch(wsvc, many, pairs))
+    prof = e2e["profile_window_epoch"]
+    log(f"one windowed epoch under torch.profiler: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f}"
+        " ms")
+    return report, e2e
 
 
 def main(device: str = "cuda") -> None:
@@ -320,7 +905,9 @@ def main(device: str = "cuda") -> None:
     launches = ksk.kernel_launches()
     log(f"main path kernel launches: {launches}")
     log(f"main path dispatch tallies: {tallies}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("fused_query", "fused_update_score",
+                           "queue_append", "queue_append_dense")
+               if launches[k] == 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     want = {
@@ -378,20 +965,6 @@ def main(device: str = "cuda") -> None:
     del psvc
 
     # ---- 4. times ------------------------------------------------------------
-    def sectors(spec, keys_i64, mask=None):
-        """Distinct 32-byte sectors the keys' cells occupy, per table row."""
-        cols = row_hashes(keys_i64, seed_t(spec), spec.width)   # (d, R, N)
-        d, r, n = cols.shape
-        word_bytes = 4
-        cells_per_word = 32 // spec.counter.bits
-        sec = (cols // cells_per_word) * word_bytes // SECTOR
-        rid = (torch.arange(r, device=dev)[None, :, None] * d
-               + torch.arange(d, device=dev)[:, None, None])
-        flat = rid * (1 << 40) + sec
-        if mask is not None:
-            flat = flat[:, mask]
-        return int(torch.unique(flat).numel())
-
     # fused_query at query_all's shape (64 tenants x 1024 probes)
     spec_q = qry_inputs["spec"]
     tq, kq = qry_inputs["tables"], qry_inputs["keys"]
@@ -506,14 +1079,6 @@ def main(device: str = "cuda") -> None:
         del res
         return out
 
-    def summary(xs):
-        xs = np.sort(np.asarray(xs))
-        out = {"n": int(xs.size), "median": float(np.median(xs)),
-               "min": float(xs[0]), "max": float(xs[-1])}
-        if xs.size >= 200:  # p95 with at least ten samples beyond it
-            out["p95"] = float(np.percentile(xs, 95))
-        return out
-
     rates = summary(ingest_rate(svc, reps=11))
     qlat = summary(query_all_ms(svc, reps=200))
     psvc = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP, device=dev,
@@ -525,39 +1090,71 @@ def main(device: str = "cuda") -> None:
         f"events per epoch): kernels {rates}, plain engine {prates}")
     log(f"query_all ms ({len(probes)} x {PROBES} probes): kernels {qlat}, "
         f"plain engine {pqlat}")
-    profile = profile_epoch(svc, sc.make_epoch(stream_rng, TENANTS, MICRO,
-                                               BATCH)[0])
+    prof_many = sc.make_epoch(stream_rng, TENANTS, MICRO, BATCH)[0]
+
+    def drive_profiled():
+        for events in prof_many:
+            svc.enqueue_many(events)
+        svc.flush()
+    profile = profile_epoch(drive_profiled)
     log(f"one ingest epoch under torch.profiler: wall {profile['wall_ms']:.3f}"
         f" ms, device busy {profile['device_busy_ms']:.3f} ms")
+
+    del svc
+
+    # ---- 5. kernels 5-9 against their plain versions -----------------------
+    errs, keep = check_slice2_kernels(dev, formats, epoch_keys)
+    del epoch_keys
+
+    # ---- 6. the windowed and the untracked paths ---------------------------
+    log(f"windowed path: {WINDOW_TENANTS} tenants x {WINDOW_BUCKETS} "
+        f"buckets x {spec.memory_bytes} B leaf, ring {RING}, track_top "
+        f"{TRACK_TOP}, beside the CMS32 metrics plane; {WINDOW_EPOCHS} "
+        f"epochs; untracked path: {TENANTS} tenants, track_top None")
+    wsvc, stream, win_launches, flat_launches = slice2_paths(
+        dev, spec, sc.probes_for(0, PROBES, WINDOW_TENANTS),
+        sc.probes_for(TENANTS, PROBES))
+
+    # ---- 7. times of kernels 5-9 and of the windowed path -------------------
+    report2, e2e2 = window_times(dev, wsvc, keep, stream_rng,
+                                 stream[-1][1][-1][1])
+    for name, err in errs.items():
+        report2[name]["max_abs_err"] = err
+    report.update(report2)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
 
-    replaces = {
-        "fused_query": "src/repro/kernels/sketch.py:298",
-        "fused_update_score": "src/repro/kernels/sketch.py:422",
-        "queue_append": "src/repro/kernels/sketch.py:526",
-        "queue_append_dense": "src/repro/kernels/sketch.py:587",
-    }
-    sources = {
-        "fused_query": "src/repro_torch/kernels/csrc/fused_query.cu",
-        "fused_update_score":
-            "src/repro_torch/kernels/csrc/fused_update_score.cu",
-        "queue_append": "src/repro_torch/kernels/csrc/queue_append.cu",
-        "queue_append_dense": "src/repro_torch/kernels/csrc/queue_append.cu",
+    src = "src/repro/kernels/sketch.py:"
+    csrc = "src/repro_torch/kernels/csrc/"
+    kernel_files = {
+        "fused_query": (src + "298", csrc + "fused_query.cu"),
+        "fused_update_score": (src + "422", csrc + "fused_update_score.cu"),
+        "queue_append": (src + "526", csrc + "queue_append.cu"),
+        "queue_append_dense": (src + "587", csrc + "queue_append.cu"),
+        "fused_update": (src + "259", csrc + "fused_update_score.cu"),
+        "fused_update_rows": (src + "344", csrc + "fused_update_score.cu"),
+        "window_query": (src + "618", csrc + "window_query.cu"),
+        "window_query_stacked": (src + "686", csrc + "window_query.cu"),
+        "window_query_stacked_rows": (src + "741", csrc + "window_query.cu"),
     }
     kernels = []
-    for name in ("fused_query", "fused_update_score", "queue_append",
-                 "queue_append_dense"):
+    for name, (replaces, source) in kernel_files.items():
         rep = report[name]
         t_bytes = rep["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rep["ops"] / FP32_OPS_PER_S * 1e3
+        launches = (main_launches[name] + win_launches[name]
+                    + flat_launches[name])
+        if launches == 0:
+            fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms, plain "
             f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']}, bound "
             f"{max(t_bytes, t_ops):.5f} ms ({rep['bytes']} B, {rep['ops']} "
-            f"ops)")
+            f"ops); launches tracked / windowed / untracked path "
+            f"{main_launches[name]} / {win_launches[name]} / "
+            f"{flat_launches[name]}")
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": main_launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
@@ -566,7 +1163,7 @@ def main(device: str = "cuda") -> None:
     print(json.dumps({"end_to_end": {
         "ingest_events_per_s": rates, "ingest_events_per_s_plain": prates,
         "query_all_ms": qlat, "query_all_ms_plain": pqlat},
-        "profile_epoch": profile}), flush=True)
+        "profile_epoch": profile, "window_path": e2e2}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

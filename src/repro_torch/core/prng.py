@@ -13,6 +13,10 @@ which is pure integer work, so it is reproduced here bit for bit with
 int64 tensor ops on the caller's device (no host round trip).  `rows`
 draws only some rows of a 2-D grid: row r column c takes flat index
 r * n_cols + c, exactly the element a full draw gathered at r holds.
+
+`split(key, num)` is `jax.random.split` on a raw key under the same
+scheme: key i is the pair threefry2x32(key, (0, i)), computed on the host
+(num is small and the keys feed host-side draws).
 """
 from __future__ import annotations
 
@@ -77,3 +81,12 @@ def uniform_rows(key, total: int, n_cols: int, rows, device="cpu"
     base = torch.from_numpy(rows * int(n_cols)).to(device)
     cols = torch.arange(n_cols, dtype=torch.int64, device=device)
     return uniform_indices(key, base[:, None] + cols[None, :])
+
+
+def split(key, num: int) -> np.ndarray:
+    """`jax.random.split(np.asarray(key, np.uint32), num)`, bit for bit:
+    (num, 2) uint32 raw keys."""
+    k = np.asarray(key, dtype=np.uint32).reshape(2)
+    idx = torch.arange(int(num), dtype=torch.int64)
+    b1, b2 = threefry2x32(int(k[0]), int(k[1]), idx >> 32, idx & MASK32)
+    return torch.stack([b1, b2], dim=1).numpy().astype(np.uint32)

@@ -4,7 +4,9 @@ Counterpart of `repro/core/sketch.py`: the sketch geometry (`SketchSpec`,
 with the packed uint32-lane storage), a `Sketch` holding one (d, w) table,
 the paper's query (min over rows + Morris decode), and the sort +
 segment-sum dedup that turns an event batch into (key, multiplicity)
-pairs for the batched conservative update.
+pairs for the batched conservative update, and that update itself in its
+one-shot form (`update_batched`: every key reads the minima from before
+the batch, writes resolve by max).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.counters import (CounterSpec, from_i64, pack_table,
                                        to_i64, unpack_table, zeros)
 from repro_torch.core.hashing import as_i64, make_row_seeds, row_hashes
@@ -188,3 +191,56 @@ def dedup_weighted(keys: torch.Tensor, weights: torch.Tensor
     mult = torch.where(start, torch.gather(totals, -1, seg),
                        torch.zeros_like(w_sorted))
     return sorted_keys, mult
+
+
+# --------------------------------------------------------------------------
+# UPDATE -- one-shot batched conservative update
+# --------------------------------------------------------------------------
+
+def conservative_update_(cells: torch.Tensor, keys: torch.Tensor,
+                         mult: torch.Tensor, uniforms: torch.Tensor,
+                         row_seeds: torch.Tensor, counter: CounterSpec
+                         ) -> None:
+    """One batch of the conservative update on R logical tables at once.
+
+    cells (R, d, w) int64, updated in place; keys/mult/uniforms (R, n).
+    Every key reads the minima from before the batch; writes land by
+    scatter-max (mult == 0 writes state 0, a no-op under max).
+    """
+    r, d, w = cells.shape
+    cols = row_hashes(keys, row_seeds, w)                     # (d, R, n)
+    ri = torch.arange(r, device=cells.device).reshape(1, -1, 1)
+    di = torch.arange(d, device=cells.device).reshape(-1, 1, 1)
+    cmin = cells[ri, di, cols].min(dim=0).values              # (R, n)
+    new = counter.nfold(cmin, mult, uniforms)
+    write = torch.where(mult > 0, new, torch.zeros_like(new))
+    flat_idx = (di * w + cols).permute(1, 0, 2).reshape(r, -1)
+    src = write.unsqueeze(1).expand(r, d, -1).reshape(r, -1)
+    cells.view(r, d * w).scatter_reduce_(1, flat_idx, src, reduce="amax")
+
+
+def update_batched(sketch: Sketch, keys: torch.Tensor, rng,
+                   weights: torch.Tensor | None = None,
+                   damp_alpha: float = 0.0) -> Sketch:
+    """Batch conservative update (sort -> dedup -> n-fold -> scatter-max)
+    in ONE step: keys (N,) raw events, `rng` a raw threefry key whose
+    uniforms (`prng.uniform(rng, (N,))`) drive the stochastic rounding.
+
+    weights: optional per-event weights (default 1); equal keys sum
+    before the n-fold step.  Returns a new Sketch.  The reference's
+    damped update (damp_alpha > 0) is not ported yet.
+    """
+    spec = sketch.spec
+    if damp_alpha > 0.0 and spec.depth >= 2:
+        raise NotImplementedError("not in this slice of the port: the "
+                                  "damped update (damp_alpha > 0)")
+    dev = sketch.table.device
+    keys = keys.reshape(-1)
+    if weights is None:
+        weights = torch.ones(keys.shape, dtype=torch.float32, device=dev)
+    sk_keys, mult = dedup_weighted(keys.to(dev), weights.to(dev))
+    u = prng.uniform(rng, (keys.shape[0],), device=dev)
+    cells = logical_table(sketch.table, spec)[None]
+    conservative_update_(cells, sk_keys[None], mult[None], u[None],
+                         sketch.row_seeds, spec.counter)
+    return Sketch(table=storage_table(cells[0], spec), spec=spec)

@@ -40,6 +40,21 @@ SIGNATURES = {
     # m, seeds, width, bits, log, max_state, logb, bm1, stream
     "cml_fused_update_score": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P,
                                _I, _P, _U, _I, _I, _U, _F, _F, _P],
+    # tables, depth, words_per_row, rows, r, keys, mult, unif, n, seeds,
+    # width, bits, log, max_state, logb, bm1, stream
+    "cml_fused_update_rows": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _U,
+                              _I, _I, _U, _F, _F, _P],
+    # tables, depth, words_per_row, t, keys, mult, unif, n, seeds, width,
+    # bits, log, max_state, logb, bm1, stream
+    "cml_fused_update": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _U, _I, _I, _U,
+                         _F, _F, _P],
+    # the three window queries: tables, r, buckets, depth, words_per_row,
+    # rows, keys, n, weights, out, mode_max, seeds, width, bits, log,
+    # max_state, logb, bm1, stream
+    **{name: [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _U, _I, _I, _U,
+              _F, _F, _P]
+       for name in ("cml_window_query", "cml_window_query_stacked",
+                    "cml_window_query_stacked_rows")},
     # queue, capw, keys, r, n, max_count, rows, fill, count, stream
     "cml_queue_append": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     # queue, capw, keys, t, n, max_count, fill, count, stream

@@ -1,10 +1,13 @@
-"""Public sketch ops over the hand-written kernels (main-path half).
+"""Public sketch ops over the hand-written kernels.
 
-Counterpart of `repro/kernels/ops.py` for the tracked counting service:
-reads (`query`, `query_many`), the single-launch flush epoch
-(`update_score_rows`: weighted dedup, parity uniforms, fused update +
-candidate score), and the device-resident ingest ring (`ring_width`,
-`queue_init`, `queue_append`, `flush_inputs`, `flush_rows_inputs`).
+Counterpart of `repro/kernels/ops.py`: reads (`query`, `query_many`,
+`window_query_tables`, `window_query_stacked`), updates (`update`,
+`update_xla`, the untracked flush's `update_many` / `update_rows`, and
+the tracked flush epoch `update_score_rows`: weighted dedup, parity
+uniforms, fused update + candidate score), the window leaf's rotation
+(`window_advance_rows`), and the device-resident ingest ring
+(`ring_width`, `queue_init`, `queue_append`, `flush_inputs`,
+`flush_rows_inputs`).
 
 engine: "auto" hands the tensors to the kernel wrappers in
 `kernels.sketch`, which launch the CUDA kernel for CUDA tensors and run
@@ -37,13 +40,15 @@ from repro_torch.kernels import sketch as ksk
 from repro_torch.kernels.sketch import CHUNK
 
 LANES = 128
+WINDOW_MODES = ("sum", "max")
 
 # Table size at which the reference changes ALGORITHM, not a memory
-# budget: past it, its untracked flush (`update_many` / `update_rows`)
-# switches to the one-shot `update_batched` with split rng keys.  The
-# tracked flush and the reads keep their semantics past it (the chunked
-# engine and `sk.query`), so in this slice the kernels serve every table
-# size; the untracked flush will need the switch.
+# budget (its `VMEM_TABLE_LIMIT`): past it, `update`, `update_many` and
+# `update_rows` switch to the one-shot `sk.update_batched`, the latter two
+# with one `prng.split` key per row.  The port keeps the switch on every
+# device, for parity.  The tracked flush and the reads keep their
+# semantics past it (the chunked engine, and queries that equal the
+# kernel's), so the kernels serve those at every table size.
 ONE_SHOT_UPDATE_TABLE_BYTES = 12 * 1024 * 1024
 
 ENGINES = ("auto", "plain")
@@ -155,6 +160,238 @@ def query_many(tables: torch.Tensor, spec: sk.SketchSpec, keys,
     return _query_tables(tables, spec, keys, engine)
 
 
+def window_query_tables(tables: torch.Tensor, spec: sk.SketchSpec, keys,
+                        weights: torch.Tensor, mode: str = "sum",
+                        engine: str = "auto") -> torch.Tensor:
+    """Weighted window reduction over one bucket ring: ONE launch.
+
+    tables (B, d, sw), keys (N,), weights (B,) per-bucket estimate
+    weights (0 = expired, gamma^age = lazy decay); mode "sum" (in bucket
+    order) or "max".  Returns float32 (N,)."""
+    _check_window(mode, engine)
+    if tuple(weights.shape) != (tables.shape[0],):
+        raise ValueError(f"need one weight per bucket: weights "
+                         f"{tuple(weights.shape)} vs {tables.shape[0]} "
+                         "buckets")
+    _launch("window_query")
+    dev = tables.device
+    keys = as_device_keys(keys, dev).reshape(-1)
+    weights = weights.to(device=dev, dtype=torch.float32).contiguous()
+    if engine == "plain":
+        return ref.window_query_plain(tables, keys, weights,
+                                      _seed_tensor(spec, dev), spec.width,
+                                      spec.counter, mode,
+                                      spec.cells_per_lane)
+    return ksk.window_query(tables, keys, weights, seeds=_seeds_tuple(spec),
+                            width=spec.width, counter=spec.counter,
+                            mode=mode, cpl=spec.cells_per_lane)
+
+
+def window_query_stacked(tables: torch.Tensor, spec: sk.SketchSpec, keys,
+                         weights: torch.Tensor, mode: str = "sum",
+                         engine: str = "auto", rows=None) -> torch.Tensor:
+    """Stacked multi-ring window reduction: R rings, ONE launch.
+
+    tables (R, B, d, sw) rings, or with `rows` (R,) host ints the native
+    (T, B, d, sw) window leaf read in place at those rings; keys (R, N);
+    weights (R, B).  Returns float32 (R, N), row r equal to a one-ring
+    `window_query_tables` of ring r."""
+    _check_window(mode, engine)
+    n_rings = tables.shape[0] if rows is None else len(rows)
+    dev = tables.device
+    keys = as_device_keys(keys, dev)
+    if keys.shape[0] != n_rings:
+        raise ValueError(f"per-ring keys need {n_rings} rows, "
+                         f"got {keys.shape[0]}")
+    if tuple(weights.shape) != (n_rings, tables.shape[1]):
+        raise ValueError(f"need (R, B) weights: {tuple(weights.shape)} vs "
+                         f"{(n_rings, tables.shape[1])}")
+    _launch("window_query_stacked")
+    weights = weights.to(device=dev, dtype=torch.float32).contiguous()
+    kw = dict(width=spec.width, counter=spec.counter, mode=mode,
+              cpl=spec.cells_per_lane)
+    if engine == "plain":
+        rows_d = (torch.arange(n_rings, device=dev) if rows is None else
+                  torch.from_numpy(np.asarray(rows, np.int64)).to(dev))
+        return ref.window_query_stacked_rows_plain(
+            tables, keys, weights, rows_d, _seed_tensor(spec, dev), **kw)
+    if rows is None:
+        return ksk.window_query_stacked(tables, keys, weights,
+                                        seeds=_seeds_tuple(spec), **kw)
+    return ksk.window_query_stacked_rows(tables, keys, weights, rows,
+                                         seeds=_seeds_tuple(spec), **kw)
+
+
+def _check_window(mode: str, engine: str) -> None:
+    if mode not in WINDOW_MODES:
+        raise ValueError(f"unknown window query mode {mode!r}")
+    _check_engine(engine)
+
+
+# --------------------------------------------------------------------------
+# updates: single sketch, and the untracked flush
+# --------------------------------------------------------------------------
+
+def _one_shot(spec: sk.SketchSpec) -> bool:
+    return spec.memory_bytes > ONE_SHOT_UPDATE_TABLE_BYTES
+
+
+def _weights(keys: torch.Tensor, weights) -> torch.Tensor:
+    if weights is None:
+        return torch.ones(keys.shape, dtype=torch.float32, device=keys.device)
+    return weights.to(device=keys.device, dtype=torch.float32)
+
+
+def _uniform_grid(tables: torch.Tensor, rows: np.ndarray, uniform_rows):
+    """(total, urows) of the parity uniform draw: the dense grid over
+    `tables` at `rows`, unless the caller decouples it."""
+    if uniform_rows is None:
+        return tables.shape[0], rows
+    total, urows = uniform_rows
+    return int(total), np.asarray(urows, np.int64).reshape(-1)
+
+
+def update(sketch: sk.Sketch, keys, rng, engine: str = "auto") -> sk.Sketch:
+    """Batched conservative update of one sketch (dedup, uniforms from the
+    raw key `rng`, CHUNK-sequential update: the T = 1 dense kernel); past
+    the one-shot limit the reference's one-shot `update_batched`.
+    Returns a new Sketch; the input's table is left as it was."""
+    _check_engine(engine)
+    _launch("update")
+    keys = as_device_keys(keys, sketch.table.device).reshape(-1)
+    if _one_shot(sketch.spec):
+        return sk.update_batched(sketch, keys, rng)
+    tables = sketch.table.clone()[None]
+    weights = _weights(keys, None)[None]
+    _update_chunked(tables, sketch.spec, keys[None], weights, rng,
+                    (1, np.zeros(1, np.int64)), engine)
+    return sk.Sketch(table=tables[0], spec=sketch.spec)
+
+
+def update_xla(sketch: sk.Sketch, keys, rng) -> sk.Sketch:
+    """The reference's CHUNK-sequential plain engine of `update`, at every
+    table size (no one-shot switch).  Returns a new Sketch."""
+    _launch("update")
+    spec = sketch.spec
+    dev = sketch.table.device
+    keys = as_device_keys(keys, dev).reshape(-1)
+    sorted_keys, mult = sk._dedup(keys)
+    uniforms = prng.uniform(rng, sorted_keys.shape, device=dev)
+    table = ref.update_chunked_ref(sketch.table, sorted_keys, mult, uniforms,
+                                   _seed_tensor(spec, dev), spec.counter,
+                                   CHUNK, cpl=spec.cells_per_lane)
+    return sk.Sketch(table=table, spec=spec)
+
+
+def _update_chunked(tables, spec, keys, weights, rng, grid, engine,
+                    rows=None):
+    """Dedup + parity uniforms + the update kernel, in place: the dense
+    kernel (batch row i -> table i), or with `rows` the row-mapped one."""
+    total, urows = grid
+    dev = tables.device
+    sorted_keys, mult = sk.dedup_weighted(keys, weights)
+    uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
+    kw = dict(counter=spec.counter, cpl=spec.cells_per_lane)
+    if engine == "plain":
+        seed_t = _seed_tensor(spec, dev)
+        if rows is None:
+            return ref.fused_update_plain(tables, sorted_keys, mult,
+                                          uniforms, seed_t, chunk=CHUNK, **kw)
+        return ref.fused_update_rows_plain(
+            tables, sorted_keys, mult, uniforms,
+            torch.from_numpy(rows).to(dev), seed_t, chunk=CHUNK, **kw)
+    keys_u = from_i64(sorted_keys, torch.uint32)
+    kw.update(seeds=_seeds_tuple(spec), width=spec.width)
+    if rows is None:
+        return ksk.fused_update(tables, keys_u, mult, uniforms, **kw)
+    return ksk.fused_update_rows(tables, keys_u, mult, uniforms, rows, **kw)
+
+
+def _update_one_shot(tables, spec, keys, weights, rng, rows, grid):
+    """Past the one-shot limit: row i takes `update_batched` with key
+    split(rng, total)[urows[i]], written back into table rows[i]."""
+    total, urows = grid
+    rngs = prng.split(rng, total)[urows]
+    for i, r in enumerate(rows.tolist()):
+        new = sk.update_batched(sk.Sketch(table=tables[r], spec=spec),
+                                keys[i], rngs[i], weights=weights[i])
+        signed_view(tables)[r] = signed_view(new.table)
+    return tables
+
+
+def update_many(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
+                weights: torch.Tensor | None = None, uniform_rows=None,
+                engine: str = "auto") -> torch.Tensor:
+    """Dense multi-tenant update, IN PLACE: tables (T, d, sw), keys /
+    weights (T, N) raw events (weight 0 = no-op).  Dedups every row and
+    lands all T in ONE launch of the dense kernel.
+
+    uniform_rows: optional (total, urows) pair: draw the uniforms over a
+    (total, N) grid at `urows`, so updating a gathered R-row stack lands
+    what the dense total-row update would.  Past the one-shot limit,
+    row i takes `update_batched` with split key i (or urows[i])."""
+    _check_engine(engine)
+    dev = tables.device
+    keys = as_device_keys(keys, dev)
+    weights = _weights(keys, weights)
+    rows = np.arange(tables.shape[0], dtype=np.int64)
+    grid = _uniform_grid(tables, rows, uniform_rows)
+    _launch("update_many")
+    if _one_shot(spec):
+        return _update_one_shot(tables, spec, keys, weights, rng, rows, grid)
+    return _update_chunked(tables, spec, keys, weights, rng, grid, engine)
+
+
+def update_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng, rows,
+                weights: torch.Tensor | None = None, uniform_rows=None,
+                engine: str = "auto") -> torch.Tensor:
+    """Active-row update, IN PLACE: batch i (keys/weights (R, N)) lands in
+    table rows[i] (host ints, unique); the other tables are untouched.
+
+    Uniforms are rows `rows` of the dense (T, N) draw, so the result
+    equals `update_many` over the whole stack with the other rows'
+    weights zeroed.  uniform_rows: optional (total, urows) decoupling the
+    draw from the row map -- the window flush updates flat rows
+    tenant * B + cursor of its (T*B, d, sw) leaf view while drawing over
+    the (T, N) tenant grid at the tenant rows.  Past the one-shot limit,
+    `update_batched` per row with split keys."""
+    _check_engine(engine)
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    grid = _uniform_grid(tables, rows, uniform_rows)
+    dev = tables.device
+    keys = as_device_keys(keys, dev)
+    weights = _weights(keys, weights)
+    _launch("update_rows")
+    if _one_shot(spec):
+        return _update_one_shot(tables, spec, keys, weights, rng, rows, grid)
+    return _update_chunked(tables, spec, keys, weights, rng, grid, engine,
+                           rows=rows)
+
+
+def rotation_mask(cursors, steps, buckets: int) -> np.ndarray:
+    """(T, B) host mask of the buckets a rotation of steps[t] clears in
+    ring t: the steps[t] buckets after cursors[t], all when >= B."""
+    cursors = np.asarray(cursors, np.int64).reshape(-1, 1)
+    steps = np.asarray(steps, np.int64).reshape(-1, 1)
+    off = (np.arange(buckets)[None, :] - cursors - 1) % buckets  # 0 = next
+    return (off < steps) | (steps >= buckets)
+
+
+def window_advance_rows(tables: torch.Tensor, cursors, steps
+                        ) -> torch.Tensor:
+    """Watermark rotation on the native (T, B, d, sw) window leaf, IN
+    PLACE, ONE masked zeroing for every tenant: ring t clears the
+    steps[t] buckets after cursors[t] (all of them when steps[t] >= B);
+    steps[t] == 0 leaves it untouched.  The caller owns the host cursor
+    mirror: cursor' = (cursor + steps) % B."""
+    _launch("window_advance_rows")
+    ti, bi = np.nonzero(rotation_mask(cursors, steps, tables.shape[1]))
+    if ti.size:
+        idx = torch.from_numpy(np.stack([ti, bi])).to(tables.device)
+        signed_view(tables)[idx[0], idx[1]] = 0
+    return tables
+
+
 # --------------------------------------------------------------------------
 # single-launch flush epoch: fused update + candidate re-score
 # --------------------------------------------------------------------------
@@ -169,7 +406,7 @@ def _parity_uniforms(rng, n_cols: int, total: int, rows, device
 
 def update_score_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
                       rows, cand, weights: torch.Tensor | None = None,
-                      engine: str = "auto"):
+                      uniform_rows=None, engine: str = "auto"):
     """Single-launch flush epoch, IN PLACE on `tables`.
 
     tables (T, d, sw); keys/weights (R, N) active-row microbatches; rows
@@ -178,18 +415,19 @@ def update_score_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
     uniforms (rows `rows` of the dense (T, N) draw, so the tables land
     exactly as a whole-plane flush would), lands the chunk-sequential
     conservative update and scores the candidates against the updated
-    rows.  Returns (tables, float32 (R, M)).
+    rows.  uniform_rows: optional (total, urows) drawing the uniforms
+    over a (total, N) grid at `urows` instead.  Returns (tables, float32
+    (R, M)).
     """
     _check_engine(engine)
     rows = np.asarray(rows, np.int32).reshape(-1)
+    total, urows = _uniform_grid(tables, rows, uniform_rows)
     dev = tables.device
     keys = as_device_keys(keys, dev)
-    if weights is None:
-        weights = torch.ones(keys.shape, dtype=torch.float32, device=dev)
+    weights = _weights(keys, weights)
     _launch("update_score_rows")
     sorted_keys, mult = sk.dedup_weighted(keys, weights)
-    uniforms = _parity_uniforms(rng, keys.shape[1], tables.shape[0], rows,
-                                dev)
+    uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
     cand = as_device_keys(cand, dev)
     rows_d = torch.from_numpy(rows).to(dev)
     if engine == "plain":

@@ -14,6 +14,9 @@ Semantics (shared with the reference's Pallas kernels):
     key reads the row minima from before the chunk, writes resolve by
     max, and entries with mult == 0 write nothing; each chunk sees all
     earlier chunks' writes.
+  * window query: per key and bucket b = 0..B-1 in order, the query's
+    estimate times the ring's weight for b; "sum" starts from bucket 0
+    and adds, "max" keeps the largest.
   * queue append: queue[rows[i], fill[i] + j] = keys[i, j] for
     j < count[i]; every other ring cell keeps its value.
 
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.core.counters import (CounterSpec, from_i64, pack_table,
                                        signed_view, to_i64, unpack_table)
+from repro_torch.core import sketch as sk
 from repro_torch.core.hashing import as_i64, row_hashes
 
 
@@ -66,33 +70,12 @@ def query_ref(table: torch.Tensor, keys: torch.Tensor,
                              width, counter, cpl)[0]
 
 
-def _update_logical(cells: torch.Tensor, keys: torch.Tensor,
-                    mult: torch.Tensor, uniforms: torch.Tensor,
-                    row_seeds: torch.Tensor, counter: CounterSpec) -> None:
-    """One chunk of the conservative update on R logical tables at once.
-
-    cells (R, d, w) int64, updated in place; keys/mult/uniforms (R, n).
-    Every key reads the minima from before the chunk; writes land by
-    scatter-max (mult == 0 writes state 0, a no-op under max).
-    """
-    r, d, w = cells.shape
-    cols = row_hashes(keys, row_seeds, w)                     # (d, R, n)
-    ri = torch.arange(r, device=cells.device).reshape(1, -1, 1)
-    di = torch.arange(d, device=cells.device).reshape(-1, 1, 1)
-    cmin = cells[ri, di, cols].min(dim=0).values              # (R, n)
-    new = counter.nfold(cmin, mult, uniforms)
-    write = torch.where(mult > 0, new, torch.zeros_like(new))
-    flat_idx = (di * w + cols).permute(1, 0, 2).reshape(r, -1)
-    src = write.unsqueeze(1).expand(r, d, -1).reshape(r, -1)
-    cells.view(r, d * w).scatter_reduce_(1, flat_idx, src, reduce="amax")
-
-
 def _chunked(cells, keys, mult, uniforms, row_seeds, counter, chunk):
     n = keys.shape[-1]
     for lo in range(0, n, chunk):
         sl = slice(lo, min(lo + chunk, n))
-        _update_logical(cells, keys[:, sl], mult[:, sl], uniforms[:, sl],
-                        row_seeds, counter)
+        sk.conservative_update_(cells, keys[:, sl], mult[:, sl],
+                                uniforms[:, sl], row_seeds, counter)
 
 
 def _to_cells(table: torch.Tensor, counter: CounterSpec, cpl: int):
@@ -110,8 +93,8 @@ def update_ref(table: torch.Tensor, keys: torch.Tensor, mult: torch.Tensor,
     """One-shot batched conservative update of one table (d, sw); returns
     the new table in its storage layout."""
     cells = _to_cells(table, counter, cpl)[None]
-    _update_logical(cells, as_i64(keys)[None], mult[None], uniforms[None],
-                    row_seeds, counter)
+    sk.conservative_update_(cells, as_i64(keys)[None], mult[None],
+                            uniforms[None], row_seeds, counter)
     return _from_cells(cells[0], counter, cpl)
 
 
@@ -126,6 +109,36 @@ def update_chunked_ref(table: torch.Tensor, keys: torch.Tensor,
     return _from_cells(cells[0], counter, cpl)
 
 
+def fused_update_rows_plain(tables: torch.Tensor, keys: torch.Tensor,
+                            mult: torch.Tensor, uniforms: torch.Tensor,
+                            rows: torch.Tensor, row_seeds: torch.Tensor,
+                            counter: CounterSpec, chunk: int, cpl: int = 1
+                            ) -> torch.Tensor:
+    """Plain version of the row-mapped update kernel.
+
+    tables (T, d, sw) storage, updated IN PLACE at `rows` (R,) (unique);
+    keys/mult/uniforms (R, N) pre-deduplicated batches.  Each row's
+    update runs chunk-sequentially; the other T - R tables are untouched.
+    """
+    rows = rows.to(device=tables.device, dtype=torch.int64)
+    cells = _to_cells(signed_view(tables)[rows].view(tables.dtype),
+                      counter, cpl)                             # (R, d, w)
+    _chunked(cells, as_i64(keys), mult, uniforms, row_seeds, counter, chunk)
+    signed_view(tables)[rows] = signed_view(_from_cells(cells, counter, cpl))
+    return tables
+
+
+def fused_update_plain(tables: torch.Tensor, keys: torch.Tensor,
+                       mult: torch.Tensor, uniforms: torch.Tensor,
+                       row_seeds: torch.Tensor, counter: CounterSpec,
+                       chunk: int, cpl: int = 1) -> torch.Tensor:
+    """Plain version of the dense update kernel: batch row i lands in
+    table i, in place.  tables (T, d, sw); keys/mult/uniforms (T, N)."""
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    return fused_update_rows_plain(tables, keys, mult, uniforms, rows,
+                                   row_seeds, counter, chunk, cpl)
+
+
 def update_score_rows_ref(tables: torch.Tensor, keys: torch.Tensor,
                           mult: torch.Tensor, uniforms: torch.Tensor,
                           rows: torch.Tensor, cand: torch.Tensor,
@@ -133,21 +146,93 @@ def update_score_rows_ref(tables: torch.Tensor, keys: torch.Tensor,
                           chunk: int, cpl: int = 1):
     """Plain version of the fused update + score kernel.
 
-    tables (T, d, sw) storage, updated IN PLACE at `rows` (R,) (unique);
-    keys/mult/uniforms (R, N) pre-deduplicated batches; cand (R, M).
-    Each row's update runs chunk-sequentially, then its candidates are
-    scored against the updated row.  Returns (tables, float32 (R, M)).
+    `fused_update_rows_plain` (in place), then cand (R, M) scored
+    against the updated rows.  Returns (tables, float32 (R, M)).
     """
+    fused_update_rows_plain(tables, keys, mult, uniforms, rows, row_seeds,
+                            counter, chunk, cpl)
+    cols = row_hashes(cand, row_seeds, tables.shape[-1] * cpl)  # (d, R, M)
+    vals = read_cells(tables, rows.to(device=tables.device,
+                                      dtype=torch.int64),
+                      cols, counter.bits, cpl)
+    return tables, counter.decode(vals.min(dim=0).values)
+
+
+def window_query_stacked_rows_plain(tables: torch.Tensor, keys: torch.Tensor,
+                                    weights: torch.Tensor,
+                                    rows: torch.Tensor,
+                                    row_seeds: torch.Tensor, width: int,
+                                    counter: CounterSpec, mode: str = "sum",
+                                    cpl: int = 1) -> torch.Tensor:
+    """Plain version of the row-mapped stacked window query.
+
+    tables (T, B, d, sw) window leaf; rows (R,) the rings to read; keys
+    (R, N); weights (R, B).  Per key, bucket b's estimate is
+    decode(min over rows) * weights[r, b]; "sum" starts from bucket 0's
+    and adds the others in ascending bucket order, "max" keeps the
+    largest.  Returns float32 (R, N).
+    """
+    if mode not in ("sum", "max"):
+        raise ValueError(f"unknown window query mode {mode!r}")
     rows = rows.to(device=tables.device, dtype=torch.int64)
-    cells = _to_cells(signed_view(tables)[rows].view(tables.dtype),
-                      counter, cpl)                             # (R, d, w)
-    _chunked(cells, as_i64(keys), mult, uniforms, row_seeds, counter, chunk)
-    cols = row_hashes(cand, row_seeds, cells.shape[-1])       # (d, R, M)
-    ri = torch.arange(cells.shape[0], device=cells.device).reshape(1, -1, 1)
-    di = torch.arange(cells.shape[1], device=cells.device).reshape(-1, 1, 1)
-    est = counter.decode(cells[ri, di, cols].min(dim=0).values)
-    signed_view(tables)[rows] = signed_view(_from_cells(cells, counter, cpl))
-    return tables, est
+    cols = row_hashes(keys, row_seeds, width)                 # (d, R, N)
+    out = None
+    for b in range(tables.shape[1]):
+        vals = read_cells(tables[:, b], rows, cols, counter.bits, cpl)
+        est = counter.decode(vals.min(dim=0).values) * weights[:, b:b + 1]
+        if out is None:
+            out = est
+        elif mode == "sum":
+            out = out + est
+        else:
+            out = torch.maximum(out, est)
+    return out
+
+
+def window_query_stacked_plain(tables: torch.Tensor, keys: torch.Tensor,
+                               weights: torch.Tensor, row_seeds: torch.Tensor,
+                               width: int, counter: CounterSpec,
+                               mode: str = "sum", cpl: int = 1
+                               ) -> torch.Tensor:
+    """Plain version of the stacked window query: R rings (R, B, d, sw),
+    keys (R, N), weights (R, B) -> float32 (R, N)."""
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    return window_query_stacked_rows_plain(tables, keys, weights, rows,
+                                           row_seeds, width, counter, mode,
+                                           cpl)
+
+
+def window_query_plain(tables: torch.Tensor, keys: torch.Tensor,
+                       weights: torch.Tensor, row_seeds: torch.Tensor,
+                       width: int, counter: CounterSpec, mode: str = "sum",
+                       cpl: int = 1) -> torch.Tensor:
+    """Plain version of the one-ring window query: tables (B, d, sw),
+    keys (N,), weights (B,) -> float32 (N,)."""
+    return window_query_stacked_plain(tables[None], keys.reshape(1, -1),
+                                      weights[None], row_seeds, width,
+                                      counter, mode, cpl)[0]
+
+
+def window_query_stacked_ref(tables: torch.Tensor, keys: torch.Tensor,
+                             weights: torch.Tensor, row_seeds: torch.Tensor,
+                             counter: CounterSpec, mode: str = "sum",
+                             cpl: int = 1) -> torch.Tensor:
+    """The reference's signature of `window_query_stacked_plain` (width
+    from the table's stored axis)."""
+    return window_query_stacked_plain(tables, keys, weights, row_seeds,
+                                      tables.shape[-1] * cpl, counter, mode,
+                                      cpl)
+
+
+def window_query_stacked_rows_ref(tables: torch.Tensor, keys: torch.Tensor,
+                                  weights: torch.Tensor, rows: torch.Tensor,
+                                  row_seeds: torch.Tensor,
+                                  counter: CounterSpec, mode: str = "sum",
+                                  cpl: int = 1) -> torch.Tensor:
+    """The reference's signature of `window_query_stacked_rows_plain`."""
+    return window_query_stacked_rows_plain(tables, keys, weights, rows,
+                                           row_seeds, tables.shape[-1] * cpl,
+                                           counter, mode, cpl)
 
 
 def queue_append_plain(queue: torch.Tensor, keys: torch.Tensor,

@@ -15,12 +15,22 @@ where it launches its kernel and nowhere else, so a run can show that
 the main path went through the kernels (`kernel_launches`,
 `reset_kernel_launches`).
 
-| wrapper              | replaces (src/repro/kernels/sketch.py)  |
-|----------------------|------------------------------------------|
-| `fused_query`        | `fused_query_pallas` :298               |
-| `fused_update_score` | `fused_update_score_pallas` :422        |
-| `queue_append`       | `queue_append_pallas` :526              |
-| `queue_append_dense` | `queue_append_dense_pallas` :587        |
+| wrapper                     | replaces (src/repro/kernels/sketch.py) |
+|-----------------------------|-----------------------------------------|
+| `fused_query`               | `fused_query_pallas` :298              |
+| `fused_update_score`        | `fused_update_score_pallas` :422       |
+| `fused_update_rows`         | `fused_update_rows_pallas` :344        |
+| `fused_update`              | `fused_update_pallas` :259             |
+| `window_query`              | `window_query_pallas` :618             |
+| `window_query_stacked`      | `window_query_stacked_pallas` :686     |
+| `window_query_stacked_rows` | `window_query_stacked_rows_pallas` :741|
+| `queue_append`              | `queue_append_pallas` :526             |
+| `queue_append_dense`        | `queue_append_dense_pallas` :587       |
+
+Row maps of the kernels added after the first four (`fused_update_rows`,
+`window_query_stacked_rows`) are host integers, checked on the host
+(range, and uniqueness where the kernel writes) and uploaded by the
+wrapper.
 """
 from __future__ import annotations
 
@@ -191,6 +201,203 @@ def fused_update_score(tables: torch.Tensor, keys: torch.Tensor,
 fused_update_score.launches = 0
 
 
+def _float_ok(name: str, x: torch.Tensor, shape) -> None:
+    _need(x.dtype == torch.float32 and x.is_contiguous(),
+          f"{name} must be contiguous float32")
+    _need(tuple(x.shape) == tuple(shape),
+          f"{name} shape {tuple(x.shape)}, expected {tuple(shape)}")
+
+
+def _host_rows(rows, limit: int, unique: bool) -> np.ndarray:
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    _need(bool(((rows >= 0) & (rows < limit)).all()),
+          f"rows outside [0, {limit})")
+    if unique:
+        _need(np.unique(rows).size == rows.size, "rows must be unique")
+    return rows
+
+
+def _rows_device(rows: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(rows.astype(np.int32)).to(device)
+
+
+def _update_batch(tables, keys, mult, uniforms, n_rows, seeds):
+    _need(keys.dim() == 2 and keys.shape[0] == n_rows,
+          f"keys must be (R={n_rows}, N), got {tuple(keys.shape)}")
+    _need(tuple(mult.shape) == tuple(keys.shape)
+          and tuple(uniforms.shape) == tuple(keys.shape),
+          "mult and uniforms must match keys' (R, N)")
+    _need(len(seeds) == tables.shape[1],
+          f"{len(seeds)} seeds for depth {tables.shape[1]}")
+
+
+def _update_cuda_ok(keys, mult, uniforms) -> None:
+    _keys_ok("keys", keys, keys.shape)
+    _float_ok("mult", mult, keys.shape)
+    _float_ok("uniforms", uniforms, keys.shape)
+
+
+def fused_update_rows(tables: torch.Tensor, keys: torch.Tensor,
+                      mult: torch.Tensor, uniforms: torch.Tensor, rows, *,
+                      seeds: tuple, width: int, counter: CounterSpec,
+                      cpl: int = 1) -> torch.Tensor:
+    """Row-mapped update, IN PLACE: batch row i lands in table rows[i]
+    (host integers, unique), CHUNK-sequentially; the other tables are
+    untouched.  tables (T, d, sw) -- for the window flush, the flat
+    (T*B, d, sw) view of the window leaf; keys/mult/uniforms (R, N)."""
+    kind = _device_kind(tables, keys, mult, uniforms)
+    wpr = _table_geometry(tables, width, counter, cpl)
+    rows = _host_rows(rows, tables.shape[0], unique=True)
+    _update_batch(tables, keys, mult, uniforms, rows.shape[0], seeds)
+    d = tables.shape[1]
+    if kind == "cpu":
+        return ref.fused_update_rows_plain(
+            tables, keys, mult, uniforms, torch.from_numpy(rows),
+            _seed_tensor(seeds, "cpu"), counter, CHUNK, cpl)
+    _update_cuda_ok(keys, mult, uniforms)
+    rows_d = _rows_device(rows, tables.device)
+    rc = build.load().cml_fused_update_rows(
+        tables.data_ptr(), d, wpr, rows_d.data_ptr(), rows.shape[0],
+        keys.data_ptr(), mult.data_ptr(), uniforms.data_ptr(), keys.shape[1],
+        _seed_array(seeds), width, *_counter_args(counter),
+        _stream(tables.device))
+    _check_cuda("fused_update_rows", rc)
+    fused_update_rows.launches += 1
+    return tables
+
+
+fused_update_rows.launches = 0
+
+
+def fused_update(tables: torch.Tensor, keys: torch.Tensor,
+                 mult: torch.Tensor, uniforms: torch.Tensor, *,
+                 seeds: tuple, width: int, counter: CounterSpec,
+                 cpl: int = 1) -> torch.Tensor:
+    """Dense multi-tenant update, IN PLACE: batch row i lands in table i,
+    CHUNK-sequentially.  tables (T, d, sw); keys/mult/uniforms (T, N)."""
+    kind = _device_kind(tables, keys, mult, uniforms)
+    wpr = _table_geometry(tables, width, counter, cpl)
+    t, d, _ = tables.shape
+    _update_batch(tables, keys, mult, uniforms, t, seeds)
+    if kind == "cpu":
+        return ref.fused_update_plain(tables, keys, mult, uniforms,
+                                      _seed_tensor(seeds, "cpu"), counter,
+                                      CHUNK, cpl)
+    _update_cuda_ok(keys, mult, uniforms)
+    rc = build.load().cml_fused_update(
+        tables.data_ptr(), d, wpr, t, keys.data_ptr(), mult.data_ptr(),
+        uniforms.data_ptr(), keys.shape[1], _seed_array(seeds), width,
+        *_counter_args(counter), _stream(tables.device))
+    _check_cuda("fused_update", rc)
+    fused_update.launches += 1
+    return tables
+
+
+fused_update.launches = 0
+
+
+# --------------------------------------------------------------------------
+# window queries
+# --------------------------------------------------------------------------
+
+_MODES = {"sum": 0, "max": 1}
+
+
+def _window_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
+                     cpl: int, mode: str) -> int:
+    """Validate a (R, B, d, sw) ring stack; return 32-bit words per row."""
+    _need(mode in _MODES, f"unknown window query mode {mode!r}")
+    _need(tables.dim() == 4, f"rings must be (R, B, d, sw), got "
+                             f"{tuple(tables.shape)}")
+    _need(tables.shape[1] >= 1, "need at least one bucket")
+    _need(tables.is_contiguous(), "rings must be contiguous")
+    return _table_geometry(tables.view((-1,) + tuple(tables.shape[2:])),
+                           width, counter, cpl)
+
+
+def _window_launch(wrapper, tables, keys, weights, rows, seeds, width,
+                   counter, mode, cpl):
+    """Check a window query's inputs (tables (R or T, B, d, sw), keys
+    (R, N), weights (R, B), rows None or (R,) host ints); run the plain
+    version on the CPU, launch `wrapper`'s kernel on CUDA."""
+    kind = _device_kind(tables, keys, weights)
+    wpr = _window_geometry(tables, width, counter, cpl, mode)
+    _, b, d, _ = tables.shape
+    n_rings = tables.shape[0] if rows is None else rows.shape[0]
+    _need(keys.dim() == 2 and keys.shape[0] == n_rings,
+          f"keys must be (R={n_rings}, N), got {tuple(keys.shape)}")
+    _need(tuple(weights.shape) == (n_rings, b),
+          f"weights must be (R={n_rings}, B={b}), got "
+          f"{tuple(weights.shape)}")
+    _need(len(seeds) == d, f"{len(seeds)} seeds for depth {d}")
+    if kind == "cpu":
+        rows_t = (torch.arange(n_rings) if rows is None
+                  else torch.from_numpy(rows))
+        return ref.window_query_stacked_rows_plain(
+            tables, keys, weights, rows_t, _seed_tensor(seeds, "cpu"), width,
+            counter, mode, cpl)
+    n = keys.shape[1]
+    _keys_ok("keys", keys, (n_rings, n))
+    _float_ok("weights", weights, (n_rings, b))
+    out = torch.empty((n_rings, n), dtype=torch.float32, device=tables.device)
+    rows_d = None if rows is None else _rows_device(rows, tables.device)
+    rc = getattr(build.load(), "cml_" + wrapper.__name__)(
+        tables.data_ptr(), n_rings, b, d, wpr,
+        None if rows_d is None else rows_d.data_ptr(), keys.data_ptr(), n,
+        weights.data_ptr(), out.data_ptr(), _MODES[mode], _seed_array(seeds),
+        width, *_counter_args(counter), _stream(tables.device))
+    _check_cuda(wrapper.__name__, rc)
+    wrapper.launches += 1
+    return out
+
+
+def window_query(tables: torch.Tensor, keys: torch.Tensor,
+                 weights: torch.Tensor, *, seeds: tuple, width: int,
+                 counter: CounterSpec, mode: str = "sum", cpl: int = 1
+                 ) -> torch.Tensor:
+    """One ring's window query: tables (B, d, sw), keys (N,), weights
+    (B,) float32 -> float32 (N,): per key, the weighted "sum" (in bucket
+    order) or "max" over buckets of the query estimate."""
+    _need(tables.dim() == 3 and keys.dim() == 1 and weights.dim() == 1,
+          "window_query takes tables (B, d, sw), keys (N,), weights (B,)")
+    return _window_launch(window_query, tables[None], keys[None],
+                          weights[None], None, seeds, width, counter, mode,
+                          cpl)[0]
+
+
+window_query.launches = 0
+
+
+def window_query_stacked(tables: torch.Tensor, keys: torch.Tensor,
+                         weights: torch.Tensor, *, seeds: tuple, width: int,
+                         counter: CounterSpec, mode: str = "sum",
+                         cpl: int = 1) -> torch.Tensor:
+    """R rings in one launch: tables (R, B, d, sw), keys (R, N), weights
+    (R, B) -> float32 (R, N)."""
+    return _window_launch(window_query_stacked, tables, keys, weights, None,
+                          seeds, width, counter, mode, cpl)
+
+
+window_query_stacked.launches = 0
+
+
+def window_query_stacked_rows(tables: torch.Tensor, keys: torch.Tensor,
+                              weights: torch.Tensor, rows, *, seeds: tuple,
+                              width: int, counter: CounterSpec,
+                              mode: str = "sum", cpl: int = 1
+                              ) -> torch.Tensor:
+    """Rings rows[i] (host integers) of the native (T, B, d, sw) window
+    leaf, read in place: keys (R, N), weights (R, B) -> float32 (R, N)."""
+    _need(tables.dim() == 4, f"rings must be (T, B, d, sw), got "
+                             f"{tuple(tables.shape)}")
+    rows = _host_rows(rows, tables.shape[0], unique=False)
+    return _window_launch(window_query_stacked_rows, tables, keys, weights,
+                          rows, seeds, width, counter, mode, cpl)
+
+
+window_query_stacked_rows.launches = 0
+
+
 # --------------------------------------------------------------------------
 # device-ring appends
 # --------------------------------------------------------------------------
@@ -268,7 +475,9 @@ def queue_append_dense(queue: torch.Tensor, keys: torch.Tensor, fill,
 
 queue_append_dense.launches = 0
 
-KERNELS = (fused_query, fused_update_score, queue_append, queue_append_dense)
+KERNELS = (fused_query, fused_update_score, queue_append, queue_append_dense,
+           fused_update, fused_update_rows, window_query, window_query_stacked,
+           window_query_stacked_rows)
 
 
 def kernel_launches() -> dict[str, int]:

@@ -1,23 +1,29 @@
-"""Counting-plane serving driver of the port: two plain planes, device rings.
+"""Counting-plane serving launcher of the port: plain and windowed planes.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_counts \
         --tenants 8 --epochs 2 --microbatches 8 --batch 1024
 
 Stands up a `CountService` over two sketch specs -- a CMLS16 plane of
 `--tenants` tenants and the narrow CMS32 metrics plane
-(`metrics_qps` / `metrics_err`) -- with heavy-hitter tracking on, and
-pushes a Zipfian event stream through the device-resident ingest rings.
-Each flush epoch of the stream is
+(`metrics_qps` / `metrics_err`) -- plus `--trending` watermark-windowed
+tenants (`trending_00`, ...; 8 buckets of 60 s on the CMLS16 spec, the
+reference launcher's `trending` tenant), with heavy-hitter tracking on
+(`--track-top 0` turns it off), and pushes a Zipfian event stream through
+the device-resident ingest rings.  Each flush epoch of the stream is
 
   * `--microbatches` calls of `enqueue_many`: one microbatch of `--batch`
     events per CMLS16 tenant (a whole-plane append, the dense kernel)
     plus 256 events for `metrics_qps` only (a one-row append, the
-    row-mapped kernel);
+    row-mapped kernel), each followed by an `enqueue_many(..., ts=ts)` of
+    `--batch` events per windowed tenant, event time advancing by
+    exponential(25 s) per microbatch -- crossing a 60 s boundary flushes
+    the window plane into the old bucket and rotates the rings;
   * one single-tenant `enqueue` on the first tenant (row-mapped append),
     which flushes the plane on queue pressure once the ring is full;
 
-then `flush`, `query_all` over per-tenant probes, `query` and `topk`.
-Every flush epoch is one fused update + score dispatch per fill class.
+then `flush`, `query_all` over per-tenant probes, `query` and `topk`, and
+the windowed reads (last 5 buckets, gamma-decayed, `topk`).  Every
+tracked flush epoch is one fused update + score dispatch per fill class.
 The run prints span and dispatch summaries off the metrics registry.
 
 Runs on CUDA by default; `--device cpu` runs the plain versions.
@@ -32,19 +38,27 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import CMLS16, CMS32, SketchSpec
-from repro_torch.stream import CountService
+from repro_torch.stream import CountService, WindowPlane, WindowSpec
 
-LATER_SLICES = ("not yet in the port (later slices): the windowed "
-                "'trending' tenant, the admission tenant 'emb_ids', "
-                "snapshot/restore and the accuracy probe")
+LATER_SLICES = ("not yet in the port (later slices): the admission tenant "
+                "'emb_ids', snapshot/restore and the accuracy probe")
+
+BUCKETS = 8
+INTERVAL = 60.0     # seconds of event time per window bucket
+MEAN_GAP = 25.0     # mean event-time step per microbatch (exponential)
+
+
+def trending_names(n: int) -> list[str]:
+    return [f"trending_{i:02d}" for i in range(n)]
 
 
 def build_service(spec: SketchSpec, tenants: int, queue_capacity: int,
-                  seed: int, track_top: int, device=None,
-                  engine: str = "auto", metrics=None, tracer=None
-                  ) -> CountService:
-    """The driver's service: `tenants` tenants on `spec`, plus the CMS32
-    metrics plane exactly as the reference driver builds it."""
+                  seed: int, track_top, device=None,
+                  engine: str = "auto", metrics=None, tracer=None,
+                  trending: int = 0) -> CountService:
+    """The launcher's service: `tenants` tenants on `spec`, the CMS32
+    metrics plane exactly as the reference launcher builds it, then
+    `trending` windowed tenants (WindowSpec(spec, 8 buckets, 60 s))."""
     names = [f"tenant_{t:02d}" for t in range(tenants)]
     svc = CountService(spec, tenants=names, queue_capacity=queue_capacity,
                        seed=seed, track_top=track_top, metrics=metrics,
@@ -52,6 +66,9 @@ def build_service(spec: SketchSpec, tenants: int, queue_capacity: int,
     metrics_spec = SketchSpec(width=1024, depth=2, counter=CMS32)
     svc.add_tenant("metrics_qps", spec=metrics_spec)
     svc.add_tenant("metrics_err", spec=metrics_spec)
+    wspec = WindowSpec(sketch=spec, buckets=BUCKETS, interval=INTERVAL)
+    for name in trending_names(trending):
+        svc.add_tenant(name, window=wspec)
     return svc
 
 
@@ -73,18 +90,42 @@ def make_epoch(rng: np.random.Generator, tenants: int, microbatches: int,
     return many, single
 
 
-def drive_epoch(svc: CountService, many, single) -> None:
-    for events in many:
+def make_trending(rng: np.random.Generator, tenants: int, microbatches: int,
+                  batch: int, ts: float):
+    """One epoch of windowed traffic: `microbatches` (events, ts) pairs,
+    Zipf(1.3) keys per windowed tenant (offset by its id), event time
+    advancing by exponential(25 s) per microbatch from `ts`.  Returns
+    (pairs, the last ts)."""
+    names = trending_names(tenants)
+    pairs = []
+    for _ in range(microbatches):
+        ts += float(rng.exponential(MEAN_GAP))
+        pairs.append(({name: ((rng.zipf(1.3, batch) % 10_000)
+                              + t * 1_000_000).astype(np.uint32)
+                       for t, name in enumerate(names)}, ts))
+    return pairs, ts
+
+
+def drive_epoch(svc: CountService, many, single, trending=()) -> None:
+    """The plain microbatches, each followed by its windowed one (if
+    any), then the single-tenant enqueue."""
+    for i, events in enumerate(many):
         svc.enqueue_many(events)
+        if trending:
+            win_events, ts = trending[i]
+            svc.enqueue_many(win_events, ts=ts)
     svc.enqueue("tenant_00", single)
 
 
-def probes_for(tenants: int, n: int) -> np.ndarray:
-    """(tenants + 2, n) per-tenant probes: each CMLS16 tenant's hottest
-    keys, then the two metrics tenants'."""
+def probes_for(tenants: int, n: int, trending: int = 0) -> np.ndarray:
+    """(tenants + 2 + trending, n) per-tenant probes in registry order:
+    each CMLS16 tenant's hottest keys, the two metrics tenants', then
+    each windowed tenant's."""
     return np.stack([np.arange(n, dtype=np.uint32) + t * 1_000_000
                      for t in range(tenants)]
-                    + [np.arange(n, dtype=np.uint32)] * 2)
+                    + [np.arange(n, dtype=np.uint32)] * 2
+                    + [np.arange(n, dtype=np.uint32) + t * 1_000_000
+                       for t in range(trending)])
 
 
 def main(argv=None) -> None:
@@ -97,7 +138,10 @@ def main(argv=None) -> None:
     ap.add_argument("--queue-cap", type=int, default=8192)
     ap.add_argument("--width", type=int, default=4096)
     ap.add_argument("--depth", type=int, default=3)
-    ap.add_argument("--track-top", type=int, default=16)
+    ap.add_argument("--track-top", type=int, default=16,
+                    help="heavy-hitter heap width (0: tracking off)")
+    ap.add_argument("--trending", type=int, default=1,
+                    help="windowed tenants (8 x 60 s buckets)")
     ap.add_argument("--probes", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -107,16 +151,22 @@ def main(argv=None) -> None:
     spec = SketchSpec(width=args.width, depth=args.depth, counter=CMLS16)
     registry = obs.MetricsRegistry()
     tracer = obs.Tracer(enabled=True, metrics=registry)
+    track_top = args.track_top or None
     svc = build_service(spec, args.tenants, args.queue_cap, args.seed,
-                        args.track_top, device=args.device, metrics=registry,
-                        tracer=tracer)
+                        track_top, device=args.device, metrics=registry,
+                        tracer=tracer, trending=args.trending)
     rng = np.random.default_rng(args.seed)
-    epochs = [make_epoch(rng, args.tenants, args.microbatches, args.batch)
-              for _ in range(args.epochs)]
+    epochs, ts = [], 0.0
+    for _ in range(args.epochs):
+        many, single = make_epoch(rng, args.tenants, args.microbatches,
+                                  args.batch)
+        trending, ts = make_trending(rng, args.trending, args.microbatches,
+                                     args.batch, ts)
+        epochs.append((many, single, trending))
 
     t0 = time.perf_counter()
-    for many, single in epochs:
-        drive_epoch(svc, many, single)
+    for many, single, trending in epochs:
+        drive_epoch(svc, many, single, trending)
     svc.flush()
     if svc.device.type == "cuda":
         torch.cuda.synchronize()
@@ -130,11 +180,20 @@ def main(argv=None) -> None:
         fill = svc.metrics.gauge("ring_fill", plane=plane.label)
         events = int(svc.metrics.counter("plane_events",
                                          plane=plane.label).value)
-        print(f"[serve_counts] plane {plane.label}: {events} events, ring "
-              f"high-water {int(fill.high_water)}/"
-              f"{len(plane.names) * svc.queue_capacity}")
+        line = (f"[serve_counts] plane {plane.label}: {events} events, ring "
+                f"high-water {int(fill.high_water)}/"
+                f"{len(plane.names) * svc.queue_capacity}")
+        if isinstance(plane, WindowPlane):
+            rot = int(svc.metrics.counter("plane_rotations",
+                                          plane=plane.label).value)
+            lags = [int(svc.metrics.gauge("watermark_lag", plane=plane.label,
+                                          tenant=n).high_water)
+                    for n in plane.names]
+            line += (f", {rot} bucket rotations, watermark lag high-water "
+                     f"{lags} intervals")
+        print(line)
 
-    probes = probes_for(args.tenants, args.probes)
+    probes = probes_for(args.tenants, args.probes, args.trending)
     counts = svc.query_all(probes)
     for name in ("tenant_00", "tenant_01", "metrics_qps"):
         vals = counts[name].cpu().numpy()[:8]
@@ -143,9 +202,24 @@ def main(argv=None) -> None:
     one = svc.query("tenant_00", probes[0])
     print(f"[serve_counts] query(tenant_00) agrees with query_all: "
           f"{bool(torch.equal(one, counts['tenant_00']))}")
-    hot, est = svc.topk("tenant_00", 5)
-    print(f"[serve_counts] tenant_00 top-5 heavy hitters (tracker-fed): "
-          f"{[(int(k), round(float(v))) for k, v in zip(hot, est)]}")
+    if track_top:
+        hot, est = svc.topk("tenant_00", 5)
+        print(f"[serve_counts] tenant_00 top-5 heavy hitters (tracker-fed): "
+              f"{[(int(k), round(float(v))) for k, v in zip(hot, est)]}")
+    if args.trending:
+        name = trending_names(1)[0]
+        keys = np.arange(8, dtype=np.uint32)
+        est_w = svc.query(name, keys, n_buckets=5).cpu().numpy()
+        est_d = svc.query(name, keys, gamma=0.8).cpu().numpy()
+        print(f"[serve_counts] {name} (last 5 of {BUCKETS} x "
+              f"{INTERVAL:.0f}s buckets, watermark epoch "
+              f"{svc.epoch_of(name)}): {[round(float(x)) for x in est_w]}")
+        print(f"[serve_counts] {name} lazy-decayed (gamma=0.8/interval): "
+              f"{[round(float(x)) for x in est_d]}")
+        if track_top:
+            hot, est = svc.topk(name, 5, n_buckets=5)
+            print(f"[serve_counts] {name} top-5 over the last 5 buckets: "
+                  f"{[(int(k), round(float(v))) for k, v in zip(hot, est)]}")
 
     summ = tracer.summary()
     print("[serve_counts] spans: " + ", ".join(

@@ -1,4 +1,6 @@
 """Streaming counting plane: the multi-tenant `CountService` (PyTorch)."""
-from repro_torch.stream.service import CountService, TenantPlane
+from repro_torch.stream.service import CountService, TenantPlane, WindowPlane
+from repro_torch.stream.window import WindowedSketch, WindowSpec
 
-__all__ = ["CountService", "TenantPlane"]
+__all__ = ["CountService", "TenantPlane", "WindowPlane", "WindowSpec",
+           "WindowedSketch"]

@@ -39,9 +39,11 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    for m in ("repro_torch.stream.service", "repro_torch.kernels.sketch",
-              "repro_torch.kernels.build", "repro_torch.convert",
-              "repro_torch.launch.serve_counts", "repro_torch.core.prng"):
+    for m in ("repro_torch.stream.service", "repro_torch.stream.window",
+              "repro_torch.kernels.sketch", "repro_torch.kernels.ops",
+              "repro_torch.kernels.ref", "repro_torch.kernels.build",
+              "repro_torch.convert", "repro_torch.launch.serve_counts",
+              "repro_torch.core.prng", "repro_torch.core.sketch"):
         assert m in res["modules"]
 
 
@@ -55,12 +57,17 @@ def no_cuda():
 def test_entry_points_without_device_raise_without_cuda(no_cuda):
     from repro_torch.core import CMLS16, SketchSpec
     from repro_torch.launch import serve_counts
-    from repro_torch.stream import CountService, TenantPlane
+    from repro_torch.stream import (CountService, TenantPlane, WindowPlane,
+                                    WindowSpec)
     spec = SketchSpec(width=256, counter=CMLS16)
     with pytest.raises(RuntimeError, match="CUDA"):
         CountService(spec, tenants=["a"], track_top=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         TenantPlane(spec, 128, track_top=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TenantPlane(spec, 128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WindowPlane(WindowSpec(sketch=spec, buckets=2, interval=1.0), 128)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_counts.main(["--tenants", "1", "--epochs", "1"])
 

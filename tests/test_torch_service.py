@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import counters as jc
 from repro.core import sketch as jsk
@@ -217,13 +218,12 @@ def test_service_to_numpy_round_trips_through_service_from_numpy():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.add_tenant("w", window=object()),
     lambda s: s.add_tenant("e", admission=object()),
-    lambda s: s.enqueue("a", [1], ts=1.0),
-    lambda s: s.enqueue_many({"a": [1]}, ts=1.0),
+    lambda s: type(s).restore("/nonexistent"),
+    lambda s: tsk.update_batched(s.sketch_of("a"), torch.zeros(2), [0, 0],
+                                 damp_alpha=0.5),
     lambda s: s.snapshot("/nonexistent", 1),
     lambda s: s.admit("a", [1]),
-    lambda s: s.planes[0].flush(dense=True),
 ])
 def test_out_of_slice_features_raise(call):
     _, ts = _specs("CMS32", False)
@@ -232,8 +232,7 @@ def test_out_of_slice_features_raise(call):
         call(svc)
 
 
-@pytest.mark.parametrize("kw", [dict(track_top=None), dict(tier=object()),
-                                dict(probe=object())])
+@pytest.mark.parametrize("kw", [dict(tier=object()), dict(probe=object())])
 def test_out_of_slice_construction_raises(kw):
     _, ts = _specs("CMS32", False)
     args = dict(track_top=4, device="cpu")

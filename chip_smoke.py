@@ -13,8 +13,11 @@ exit, no result line) if anything disagrees:
                 card, at the main path's full-size shapes: fused_query and
                 fused_update_score across all five storage formats
                 (CMS32, CMLS16, CMLS16 packed, CMLS8, CMLS8 packed, each
-                64 tenants x 4 MiB), the two ring appends on the 64 x
-                65536 ring.  Equality is exact: states, ring cells and
+                64 tenants x 4 MiB), the two ring appends on 65,536-key
+                rings with 8,192-key batches, aligned and at the edge
+                cases (a call of MAX_APPEND_ROWS + 37 rows split over two
+                launches, odd fill offsets, zero counts, rows ending at
+                capw).  Equality is exact: states, ring cells and
                 estimates;
   3. main    -- the counting service at full size (64 CMLS16 tenants of
                 4 MiB, width 1,048,576, depth 2; a 65,536-key ring per
@@ -30,7 +33,8 @@ exit, no result line) if anything disagrees:
                 and answers must be equal;
   4. times   -- CUDA-event times of each kernel, its plain version and,
                 where one exists, a single PyTorch call computing the same
-                function; the end-to-end ingest rate and the query_all
+                function, and for the appends the wrapper's host time
+                by part; the end-to-end ingest rate and the query_all
                 latency;
   5. kernels 5-9 -- fused_update, fused_update_rows and the three window
                 queries against their plain versions on the card, at the
@@ -51,7 +55,17 @@ exit, no result line) if anything disagrees:
   7. times   -- CUDA-event times of kernels 5-9 beside their plain
                 versions and bytes bounds; the windowed ingest rate and
                 query_all latency with kernels and with the plain engine;
-                one windowed epoch under torch.profiler.
+  8. sync    -- 8 full-size `enqueue_many` calls on a fresh tracked and a
+                fresh windowed service under
+                torch.cuda.set_sync_debug_mode("error") (rings filled
+                exactly, event times inside one interval: no flush, no
+                rotation); a synchronizing call fails the run; rings and
+                fills must equal the plain engine's;
+  9. profiles -- last, since a torch.profiler session slows the process's
+                later host work: one tracked and one windowed epoch
+                (device busy and idle share, synchronizes and copies
+                counted), the appends' kernel time alone, then the append
+                wrappers' host time again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -84,6 +98,9 @@ WINDOW_BUCKETS = 8
 WINDOW_EPOCHS = 12
 OUTAGE_EPOCH = 6            # event time jumps OUTAGE seconds before it
 OUTAGE = 600.0              # ten intervals: more than the 8-bucket ring
+# host-side CUDA runtime calls counted over each profiled epoch
+RUNTIME_CALLS = ("cudaStreamSynchronize", "cudaMemcpyAsync",
+                 "cudaLaunchKernel", "cudaEventSynchronize")
 
 
 def fail(msg: str) -> None:
@@ -154,9 +171,107 @@ def profile_epoch(drive) -> dict:
 
     def top(rows):
         return [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:10]]
+    calls = dict.fromkeys(RUNTIME_CALLS, 0)
+    for key, _, count in host_rows:
+        if key in calls:
+            calls[key] += count
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / (wall * 1e3),
+            "idle_share": 1.0 - busy / (wall * 1e3), "runtime_calls": calls,
             "device_top": top(device_rows), "host_top": top(host_rows)}
+
+
+def kernel_device_ms(fn, reps: int, name: str) -> float:
+    """Mean device duration in ms of the kernels whose profiler name holds
+    `name`, over `reps` calls of fn() under torch.profiler (one warm-up
+    first): the kernel alone, without the host work around its launch.
+    The mean is over the launches the profiler recorded, which may miss
+    one of a run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CPU and name in ev.key:
+            total += ev.self_device_time_total / 1e3
+            count += ev.count
+    if not 0 < count <= reps:
+        fail(f"torch.profiler saw {count} launches of {name!r} in {reps} "
+             "calls")
+    return total / count
+
+
+def append_host_us(dev, ring, calls: dict, reps: int = 2000) -> dict:
+    """Where a ring-append wrapper's host time goes: the mean host time in
+    us per call over `reps` back-to-back calls (perf_counter; the kernels
+    queue behind) of the checks (`_append_meta`, which also builds the
+    int64 meta the C entry points take), the current-stream lookup, the
+    bare C launch with its meta prepared, and the whole wrapper; beside
+    them the same for the `index_put_` yardstick.  `calls`: {kernel name:
+    (keys, rows or None, fill, count, the index_put_ call)}."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sketch as ksk
+    lib = build.load()
+    stream = ksk._stream(ring.device)
+
+    def per_call_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+    out = {}
+    for name, (keys, rows, fill, count, library) in calls.items():
+        dense = rows is None
+        meta = ksk._append_meta(ring, keys, rows, fill, count)
+        entry = getattr(lib, "cml_" + name)
+        wrapper = getattr(ksk, name)
+        args = (fill, count) if dense else (rows, fill, count)
+        out[name] = {
+            "checks_us": per_call_us(lambda: ksk._append_meta(
+                ring, keys, rows, fill, count)),
+            "stream_us": per_call_us(lambda: ksk._stream(ring.device)),
+            "c_launch_us": per_call_us(lambda: entry(
+                ring.data_ptr(), ring.shape[1], keys.data_ptr(),
+                keys.shape[0], keys.shape[1], meta.ctypes.data, stream)),
+            "wrapper_us": per_call_us(lambda: wrapper(ring, keys, *args)),
+            "index_put_us": per_call_us(library)}
+    return out
+
+
+def append_param_block_us(dev, reps: int = 2000) -> dict:
+    """Host time per bare dense-append launch (1 key a row, so the card
+    keeps up) with the small parameter block (64 rows: 512 B of meta) and
+    the large one (65 rows: 8 KB of meta, CML_APPEND_MAX_ROWS a launch)."""
+    from repro_torch.core.counters import zeros
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import sketch as ksk
+    lib = build.load()
+    stream = ksk._stream(dev)
+    capw = ops.ring_width(RING)
+    out = {}
+    for rows in (64, 65):
+        ring = zeros((rows, capw), torch.uint32, dev)
+        keys = zeros((rows, ops.CHUNK), torch.uint32, dev)
+        meta = np.stack([np.zeros(rows), np.ones(rows)]).astype(np.int64)
+
+        def launch():
+            return lib.cml_queue_append_dense(
+                ring.data_ptr(), capw, keys.data_ptr(), rows, ops.CHUNK,
+                meta.ctypes.data, stream)
+        launch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+        out[f"{rows}_rows_us"] = (time.perf_counter() - t0) / reps * 1e6
+    return out
 
 
 def sectors(spec, keys_i64, mask=None) -> int:
@@ -563,12 +678,12 @@ def slice2_paths(dev, spec, probes_win, probes_flat):
     return wsvc, stream, win_launches, flat_launches
 
 
-def window_times(dev, wsvc, keep, stream_rng, ts: float
-                 ) -> tuple[dict, dict]:
+def window_times(dev, wsvc, keep, stream_rng, ts: float):
     """Phase 7: CUDA-event times of kernels 5-9 beside their plain
     versions and bytes bounds; the windowed ingest rate and query_all
-    latency with kernels and with the plain engine; one windowed epoch
-    under torch.profiler."""
+    latency with kernels and with the plain engine.  Returns (kernel
+    report, end-to-end numbers, the drive of one more windowed epoch for
+    the profile of phase 9)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sketch as ksk
     from repro_torch.kernels import ops
@@ -711,19 +826,154 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float
         f"{e2e['window_query_all_ms_plain']}")
     many, _ = sc.make_epoch(stream_rng, 0, MICRO, BATCH)
     pairs, _ = sc.make_trending(stream_rng, WINDOW_TENANTS, MICRO, BATCH, ts)
-    e2e["profile_window_epoch"] = profile_epoch(
-        lambda: drive_window_epoch(wsvc, many, pairs))
-    prof = e2e["profile_window_epoch"]
-    log(f"one windowed epoch under torch.profiler: wall "
-        f"{prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f}"
-        " ms")
-    return report, e2e
+    return report, e2e, lambda: drive_window_epoch(wsvc, many, pairs)
+
+
+# ---- the ring appends (slice 3) --------------------------------------------
+
+APPEND_CASES = ("aligned_fill", "odd_fill", "zero_count", "full_row",
+                "split")
+
+
+def append_case(case: str, dense: bool, rng, dev):
+    """(ring, keys, rows, fill, count) of one append at the main path's
+    widths (a 65,536-key ring, 8,192-key batches): 64 rows, or for "split"
+    MAX_APPEND_ROWS + 37 rows, so the call spans two launches; rows None
+    for the dense kernel, else a permuted subset of the ring's rows."""
+    from repro_torch.core.counters import from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sketch as ksk
+    t = ksk.MAX_APPEND_ROWS + 37 if case == "split" else TENANTS
+    capw, n = ops.ring_width(RING), BATCH
+    r = t if dense else t - 5
+    ring = from_numpy(rng.integers(0, 2**32, (t, capw), dtype=np.uint64)
+                      .astype(np.uint32), dev)
+    keys = from_numpy(rng.integers(0, 2**32, (r, n), dtype=np.uint64)
+                      .astype(np.uint32), dev)
+    rows = None if dense else rng.permutation(t)[:r]
+    count = rng.integers(1, n + 1, r)
+    fill = rng.integers(0, capw - n + 1, r)
+    if case in ("aligned_fill", "split"):  # 16-byte path, ragged tails
+        fill -= fill % 4
+    elif case == "odd_fill":  # 4-byte path
+        fill |= 1
+    elif case == "zero_count":
+        count[::2] = 0
+    elif case == "full_row":  # every row ends at capw
+        fill = capw - count
+    return ring, keys, rows, fill, count
+
+
+def check_appends(dev, rng) -> None:
+    """Phase 2, appends: both append kernels against their plain versions
+    at full width and at the edge cases of APPEND_CASES: a call split
+    over two launches, odd fill offsets, zero counts, rows that end at
+    capw.  Ring cells exactly equal."""
+    from repro_torch.core.counters import signed_view
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sketch as ksk
+
+    def on_dev(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(dev)
+    for case in APPEND_CASES:
+        for dense in (True, False):
+            ring, keys, rows, fill, count = append_case(case, dense, rng, dev)
+            a, b = ring.clone(), ring
+            if dense:
+                ksk.queue_append_dense(a, keys, fill, count)
+                ref.queue_append_dense_plain(b, keys, on_dev(fill),
+                                             on_dev(count))
+            else:
+                ksk.queue_append(a, keys, rows, fill, count)
+                ref.queue_append_plain(b, keys, on_dev(rows), on_dev(fill),
+                                       on_dev(count))
+            torch.cuda.synchronize()
+            name = "queue_append_dense" if dense else "queue_append"
+            if not torch.equal(signed_view(a), signed_view(b)):
+                diff = int((signed_view(a) != signed_view(b)).sum())
+                fail(f"{name} {case} ({tuple(ring.shape)} ring, "
+                     f"{keys.shape[0]} rows): {diff} ring cells differ from "
+                     "its plain version")
+            del a, b, ring, keys
+        log(f"queue_append_dense and queue_append, {case}: ring equal")
+
+
+def check_enqueue_no_sync(dev, spec) -> dict:
+    """Phase 8: 8 full-size `enqueue_many` microbatches on a fresh tracked
+    service (64 x 8,192 keys each, beside metrics_qps) and a fresh windowed
+    one (the metrics microbatch, then 32 x 8,192 windowed keys at event
+    times inside ONE interval) under torch.cuda.set_sync_debug_mode
+    ("error"): a synchronizing CUDA call in the append path fails the run.
+    The batches fill the 65,536-key rings exactly, so nothing flushes and
+    nothing rotates.  Then the same stream on the plain engine (outside
+    the debug mode) must leave equal rings and fills.  Returns the
+    kernel launches of the run with kernels."""
+    from repro_torch.core.counters import signed_view
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 5)
+    many, _ = sc.make_epoch(rng, TENANTS, MICRO, BATCH)
+    metrics, _ = sc.make_epoch(rng, 0, MICRO, BATCH)
+    pairs, _ = sc.make_trending(rng, WINDOW_TENANTS, MICRO, BATCH, 0.0)
+    start = 60.0 * 1000  # event times start..start+7 s: one 60 s interval
+
+    def drive(engine: str):
+        tracked = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                                   device=dev, engine=engine)
+        windowed = sc.build_service(spec, 0, RING, SEED, TRACK_TOP,
+                                    device=dev, engine=engine,
+                                    trending=WINDOW_TENANTS)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(MICRO):
+                tracked.enqueue_many(many[i])
+                windowed.enqueue_many(metrics[i])
+                windowed.enqueue_many(pairs[i][0], ts=start + i)
+        except RuntimeError as err:
+            fail(f"enqueue_many synchronized under set_sync_debug_mode"
+                 f"('error'): {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        return tracked, windowed
+
+    ksk.reset_kernel_launches()
+    auto = drive("auto")
+    launches = ksk.kernel_launches()
+    plain = drive("plain")
+    want = {k: 0 for k in launches}
+    want.update(queue_append=2 * MICRO, queue_append_dense=2 * MICRO)
+    if launches != want:
+        fail(f"sync-free enqueue_many kernel launches {launches} != {want}")
+    for what, a, p in zip(("tracked", "windowed"), auto, plain):
+        if a.stats["flushes"] or p.stats["flushes"]:
+            fail(f"sync-free enqueue_many: the {what} service flushed")
+        for i, (pa, pp) in enumerate(zip(a.planes, p.planes)):
+            if not (np.array_equal(pa.ring.fill, pp.ring.fill)
+                    and torch.equal(signed_view(pa.ring.queue),
+                                    signed_view(pp.ring.queue))):
+                fail(f"sync-free enqueue_many: {what} plane {i} ring or fill "
+                     "differs from the plain engine's")
+        full = [int(pa.ring.fill.min()) for pa in a.planes
+                if pa.ring.fill.size > 2]
+        if full != [RING]:
+            fail(f"sync-free enqueue_many: {what} rings not full: {full}")
+    log(f"sync-free enqueue_many: {MICRO} microbatches on the tracked and "
+        "the windowed service under set_sync_debug_mode('error'), no "
+        f"error; rings and fills equal the plain engine's; launches "
+        f"{launches}")
+    return launches
 
 
 def main(device: str = "cuda") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     root = pathlib.Path(__file__).resolve().parent
+    if not (root / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, str(root / "src"))
     from repro_torch.convert import service_to_numpy
     from repro_torch.core import prng
@@ -839,30 +1089,7 @@ def main(device: str = "cuda") -> None:
                                         dtype=np.uint64).astype(np.uint32),
                            dev)
     count_d = np.full(TENANTS, BATCH)
-    qa = base_ring.clone()
-    qb = base_ring.clone()
-    ksk.queue_append_dense(qa, dense_keys, fill_d, count_d)
-    ref.queue_append_dense_plain(qb, dense_keys,
-                                 torch.from_numpy(fill_d).to(dev),
-                                 torch.from_numpy(count_d).to(dev))
-    torch.cuda.synchronize()
-    if not torch.equal(signed_view(qa), signed_view(qb)):
-        fail("queue_append_dense differs from its plain version")
-    log("queue_append_dense: ring equal")
-    row_rows = np.array([0, TENANTS // 3, TENANTS - 1])
-    row_fill = np.array([RING - BATCH, 5, 0])
-    row_count = np.array([BATCH, BATCH - 3, 256])
-    row_keys = dense_keys[:3].contiguous()
-    qa = base_ring.clone()
-    qb = base_ring.clone()
-    ksk.queue_append(qa, row_keys, row_rows, row_fill, row_count)
-    ref.queue_append_plain(qb, row_keys, torch.from_numpy(row_rows).to(dev),
-                           torch.from_numpy(row_fill).to(dev),
-                           torch.from_numpy(row_count).to(dev))
-    torch.cuda.synchronize()
-    if not torch.equal(signed_view(qa), signed_view(qb)):
-        fail("queue_append differs from its plain version")
-    log("queue_append: ring equal")
+    check_appends(dev, rng)
 
     # ---- 3. main path at full size -----------------------------------------
     spec = sk.SketchSpec.from_memory(BUDGET, depth=2, counter=CMLS16)
@@ -1016,7 +1243,10 @@ def main(device: str = "cuda") -> None:
         shape=f"tables {(TENANTS, 2, spec_u.storage_width)} uint16, keys "
               f"({r}, {n}), {n_live} distinct, cand ({r}, {m})")
 
-    # ring appends at enqueue_many's and enqueue's shapes
+    # ring appends at enqueue_many's and enqueue's shapes, three ways: the
+    # wrapper from host integers (CUDA events around one call), the kernel
+    # alone on the device (torch.profiler), and one index_put_ with its
+    # index tensors already on the card
     ring = base_ring.clone()
     fill_t = torch.from_numpy(fill_d).to(dev)
     count_t = torch.from_numpy(count_d).to(dev)
@@ -1028,7 +1258,8 @@ def main(device: str = "cuda") -> None:
     dr = torch.arange(TENANTS, device=dev)[:, None].expand(-1, BATCH)
     dc = fill_t[:, None] + jj[None, :]
     dv = signed_view(dense_keys)
-    lms = cuda_ms(lambda: signed_view(ring).index_put_((dr, dc), dv), 50)
+    dense_index_put = lambda: signed_view(ring).index_put_((dr, dc), dv)
+    lms = cuda_ms(dense_index_put, 50)
     report["queue_append_dense"] = dict(
         ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=0.0,
         bytes=TENANTS * BATCH * 8 + 2 * TENANTS * 4, ops=0,
@@ -1046,11 +1277,20 @@ def main(device: str = "cuda") -> None:
     rr = torch.zeros((1, BATCH), dtype=torch.int64, device=dev)
     rc = jj[None, :]
     rv = signed_view(one_keys)
-    lms = cuda_ms(lambda: signed_view(ring).index_put_((rr, rc), rv), 50)
+    rows_index_put = lambda: signed_view(ring).index_put_((rr, rc), rv)
+    lms = cuda_ms(rows_index_put, 50)
     report["queue_append"] = dict(
         ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=0.0,
         bytes=BATCH * 8 + 3 * 4, ops=0,
         shape=f"ring ({TENANTS}, {capw}), keys (1, {BATCH})")
+    append_calls = {
+        "queue_append": (one_keys, one_rows, one_fill, one_count,
+                         rows_index_put),
+        "queue_append_dense": (dense_keys, None, fill_d, count_d,
+                               dense_index_put)}
+    append_host = append_host_us(dev, ring, append_calls)
+    append_host["param_block"] = append_param_block_us(dev)
+    log(f"append wrapper host time by part, us per call: {append_host}")
 
     # end to end: ingest rate (8 enqueue_many + flush) and query_all latency
     def ingest_rate(s, reps=3):
@@ -1096,11 +1336,6 @@ def main(device: str = "cuda") -> None:
         for events in prof_many:
             svc.enqueue_many(events)
         svc.flush()
-    profile = profile_epoch(drive_profiled)
-    log(f"one ingest epoch under torch.profiler: wall {profile['wall_ms']:.3f}"
-        f" ms, device busy {profile['device_busy_ms']:.3f} ms")
-
-    del svc
 
     # ---- 5. kernels 5-9 against their plain versions -----------------------
     errs, keep = check_slice2_kernels(dev, formats, epoch_keys)
@@ -1116,11 +1351,41 @@ def main(device: str = "cuda") -> None:
         sc.probes_for(TENANTS, PROBES))
 
     # ---- 7. times of kernels 5-9 and of the windowed path -------------------
-    report2, e2e2 = window_times(dev, wsvc, keep, stream_rng,
+    report2, e2e2, drive_window = window_times(dev, wsvc, keep, stream_rng,
                                  stream[-1][1][-1][1])
     for name, err in errs.items():
         report2[name]["max_abs_err"] = err
     report.update(report2)
+
+    # ---- 8. enqueue_many without a synchronizing call ------------------------
+    sync_launches = check_enqueue_no_sync(dev, spec)
+
+    # ---- 9. profiles ---------------------------------------------------------
+    # Last: a torch.profiler session leaves this process's later host work
+    # slower (the append wrappers' host time below, before and after), so
+    # every event and host-clock time above is taken before the first one.
+    # The two epochs come first and in this order, as they did when the
+    # script profiled them in phases 4 and 7: each is profiled after as
+    # many earlier sessions as before, so the epochs stay comparable.
+    profile = profile_epoch(drive_profiled)
+    e2e2["profile_window_epoch"] = profile_epoch(drive_window)
+    for name, meta in (("queue_append", "RowsMeta"),
+                       ("queue_append_dense", "DenseMeta")):
+        keys, rows, fill, count, _ = append_calls[name]
+        args = (fill, count) if rows is None else (rows, fill, count)
+        report[name]["device_ms"] = kernel_device_ms(
+            lambda: getattr(ksk, name)(ring, keys, *args), 50, meta)
+    for what, prof in (("tracked", profile),
+                       ("windowed", e2e2["profile_window_epoch"])):
+        log(f"one {what} epoch under torch.profiler: wall "
+            f"{prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}, runtime calls "
+            f"{prof['runtime_calls']}")
+    append_host["after_profiler"] = append_host_us(dev, ring, append_calls)
+    log("append wrapper host time by part after the profiler sessions, us "
+        f"per call: {append_host['after_profiler']}")
+    del svc, wsvc
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
 
@@ -1143,15 +1408,17 @@ def main(device: str = "cuda") -> None:
         t_bytes = rep["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rep["ops"] / FP32_OPS_PER_S * 1e3
         launches = (main_launches[name] + win_launches[name]
-                    + flat_launches[name])
+                    + flat_launches[name] + sync_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
-        log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms, plain "
+        device = ("" if "device_ms" not in rep
+                  else f" (kernel alone {rep['device_ms']:.5f} ms)")
+        log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms{device}, plain "
             f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']}, bound "
             f"{max(t_bytes, t_ops):.5f} ms ({rep['bytes']} B, {rep['ops']} "
-            f"ops); launches tracked / windowed / untracked path "
-            f"{main_launches[name]} / {win_launches[name]} / "
-            f"{flat_launches[name]}")
+            f"ops); launches tracked / windowed / untracked path / "
+            f"sync-free enqueue {main_launches[name]} / {win_launches[name]}"
+            f" / {flat_launches[name]} / {sync_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1162,7 +1429,8 @@ def main(device: str = "cuda") -> None:
             "library_ms": rep["library_ms"]})
     print(json.dumps({"end_to_end": {
         "ingest_events_per_s": rates, "ingest_events_per_s_plain": prates,
-        "query_all_ms": qlat, "query_all_ms_plain": pqlat},
+        "query_all_ms": qlat, "query_all_ms_plain": pqlat,
+        "append_host_us": append_host},
         "profile_epoch": profile, "window_path": e2e2}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

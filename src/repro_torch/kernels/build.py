@@ -55,10 +55,12 @@ SIGNATURES = {
               _F, _F, _P]
        for name in ("cml_window_query", "cml_window_query_stacked",
                     "cml_window_query_stacked_rows")},
-    # queue, capw, keys, r, n, max_count, rows, fill, count, stream
-    "cml_queue_append": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
-    # queue, capw, keys, t, n, max_count, fill, count, stream
-    "cml_queue_append_dense": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
+    # queue, capw, keys, r, n, meta, stream; meta: host int64 (3, r) rows /
+    # fill / count, passed on to the kernel by value
+    "cml_queue_append": [_P, _I, _P, _I, _I, _P, _P],
+    # queue, capw, keys, t, n, meta, stream; meta: host int64 (2, t) fill /
+    # count
+    "cml_queue_append_dense": [_P, _I, _P, _I, _I, _P, _P],
 }
 
 _LIB = None

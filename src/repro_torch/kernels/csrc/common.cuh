@@ -19,6 +19,10 @@
 #include <cuda_runtime.h>
 
 #define CML_MAX_DEPTH 8
+// Rows one ring-append launch carries by value (queue_append.cu): 1,024
+// rows of (row, fill, count) int32 are 12 KB of the 32,764-byte kernel
+// parameter block that sm_90 takes under CUDA 12.1 and later.
+#define CML_APPEND_MAX_ROWS 1024
 
 struct RowSeeds {
   uint32_t s[CML_MAX_DEPTH];

@@ -30,7 +30,9 @@ the main path went through the kernels (`kernel_launches`,
 Row maps of the kernels added after the first four (`fused_update_rows`,
 `window_query_stacked_rows`) are host integers, checked on the host
 (range, and uniqueness where the kernel writes) and uploaded by the
-wrapper.
+wrapper.  The ring appends' per-row meta (rows, fill, count) are host
+integers too, checked on the host and passed to the kernel by value in
+its parameter block: an append makes no device tensor and no copy.
 """
 from __future__ import annotations
 
@@ -57,7 +59,13 @@ def _seed_array(seeds: tuple):
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of torch's current stream on a tensor's device, read
+    without building a torch.cuda.Stream object (the call torch's own
+    generated kernels make): a few microseconds less on every launch."""
+    index = device.index
+    if index is None:  # a bare "cuda": the current device
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _device_kind(*tensors: torch.Tensor) -> str:
@@ -107,12 +115,16 @@ def _counter_args(counter: CounterSpec):
             counter.bm1 if counter.kind == "log" else 0.0)
 
 
-def _keys_ok(name: str, keys: torch.Tensor, shape) -> None:
-    _need(keys.dtype in _KEY_DTYPES,
-          f"{name} must be uint32 or int32 on CUDA, got {keys.dtype}")
-    _need(tuple(keys.shape) == tuple(shape),
-          f"{name} shape {tuple(keys.shape)}, expected {tuple(shape)}")
-    _need(keys.is_contiguous(), f"{name} must be contiguous")
+def _keys_ok(name: str, keys: torch.Tensor, shape=None) -> None:
+    # messages are formatted only on failure: this runs on every launch
+    if keys.dtype not in _KEY_DTYPES:
+        raise ValueError(f"{name} must be uint32 or int32 on CUDA, got "
+                         f"{keys.dtype}")
+    if shape is not None and tuple(keys.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(keys.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not keys.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 # --------------------------------------------------------------------------
@@ -402,48 +414,83 @@ window_query_stacked_rows.launches = 0
 # device-ring appends
 # --------------------------------------------------------------------------
 
-def _append_meta(queue: torch.Tensor, keys: torch.Tensor, fill, count,
-                 n_rows: int):
-    _need(queue.dim() == 2 and queue.dtype == torch.uint32,
-          "queue must be a (T, capw) uint32 ring")
-    _need(queue.is_contiguous(), "queue must be contiguous")
-    _need(keys.dim() == 2 and keys.shape[0] == n_rows,
-          f"keys must be (R={n_rows}, N), got {tuple(keys.shape)}")
-    fill = np.asarray(fill, np.int64).reshape(-1)
-    count = np.asarray(count, np.int64).reshape(-1)
-    _need(fill.shape == (n_rows,) and count.shape == (n_rows,),
-          "fill and count need one entry per batch row")
-    _need(bool((fill >= 0).all() and (count >= 0).all()),
-          "fill and count must be non-negative")
-    _need(bool((count <= keys.shape[1]).all()),
-          "count exceeds the batch width")
-    _need(bool((fill + count <= queue.shape[1]).all()),
-          "fill + count exceeds the ring width")
-    return fill, count
+MAX_APPEND_ROWS = 1024  # CML_APPEND_MAX_ROWS in csrc/common.cuh
+_APPEND_LIMITS: dict = {}  # (t, capw, n, k) -> `_append_limits`
+
+
+def _append_limits(t: int, capw: int, n: int, k: int) -> np.ndarray:
+    """Inclusive upper bounds of [rows,] fill, count, fill + count, as a
+    (k + 1, 1) uint64 column (cached per shape)."""
+    key = (t, capw, n, k)
+    lim = _APPEND_LIMITS.get(key)
+    if lim is None:
+        lim = _APPEND_LIMITS[key] = np.array(
+            ((t - 1,), (capw,), (n,), (capw,))[3 - k:], np.uint64)
+    return lim
+
+
+def _append_meta(queue: torch.Tensor, keys: torch.Tensor, rows, fill,
+                 count) -> np.ndarray:
+    """Check one ring append against the kernels' contract; return its
+    (k, R) int64 host meta, C-contiguous: (rows, fill, count), or (fill,
+    count) when `rows` is None (the dense append: batch row i -> ring row
+    i).
+
+    The checks run on one int64 array in one pass: its rows and fill +
+    count, viewed as unsigned (a negative wraps past every bound), in one
+    comparison with the bounds; rows are checked unique by a sort.
+    Messages are built only for a call that fails."""
+    if queue.dim() != 2 or queue.dtype != torch.uint32:
+        raise ValueError("queue must be a (T, capw) uint32 ring")
+    if not queue.is_contiguous():
+        raise ValueError("queue must be contiguous")
+    t, capw = queue.shape
+    cols = (fill, count) if rows is None else (rows, fill, count)
+    k = len(cols)
+    try:
+        meta = np.array(cols, np.int64)
+        if meta.ndim != 2:
+            meta = meta.reshape(k, -1)
+    except ValueError:
+        meta = None
+    n_rows = t if rows is None else (
+        np.size(rows) if meta is None else meta.shape[1])
+    if keys.dim() != 2 or keys.shape[0] != n_rows:
+        raise ValueError(f"keys must be (R={n_rows}, N), got "
+                         f"{tuple(keys.shape)}")
+    if meta is None or meta.shape[1] != n_rows:
+        raise ValueError("fill and count need one entry per batch row")
+    n = keys.shape[1]
+    chk = np.empty((k + 1, n_rows), np.int64)
+    chk[:k] = meta
+    np.add(meta[-2], meta[-1], out=chk[k])
+    if np.count_nonzero(chk.view(np.uint64) > _append_limits(t, capw, n, k)):
+        _need(meta[-2:].min() >= 0, "fill and count must be non-negative")
+        _need(meta[-1].max() <= n, "count exceeds the batch width")
+        _need(chk[k].max() <= capw, "fill + count exceeds the ring width")
+        raise ValueError("rows outside the ring")
+    if rows is not None and n_rows > 1:
+        s = np.sort(meta[0])
+        _need(not np.count_nonzero(s[1:] == s[:-1]), "rows must be unique")
+    return meta
 
 
 def queue_append(queue: torch.Tensor, keys: torch.Tensor, rows, fill,
                  count) -> torch.Tensor:
     """Row-mapped ring append, IN PLACE: ring row rows[i] takes
     keys[i, :count[i]] at columns fill[i]...  queue (T, capw) uint32;
-    keys (R, N); rows/fill/count (R,) host integers, rows unique."""
+    keys (R, N); rows/fill/count (R,) host integers, rows unique.  On
+    CUDA the meta reaches the kernel by value: no device tensor, no
+    copy."""
     kind = _device_kind(queue, keys)
-    rows = np.asarray(rows, np.int64).reshape(-1)
-    fill, count = _append_meta(queue, keys, fill, count, rows.shape[0])
-    _need(bool(((rows >= 0) & (rows < queue.shape[0])).all()),
-          "rows outside the ring")
-    _need(np.unique(rows).size == rows.size, "rows must be unique")
+    meta = _append_meta(queue, keys, rows, fill, count)
     if kind == "cpu":
-        return ref.queue_append_plain(queue, keys, torch.from_numpy(rows),
-                                      torch.from_numpy(fill),
-                                      torch.from_numpy(count))
-    _keys_ok("keys", keys, keys.shape)
-    meta = torch.from_numpy(np.stack([rows, fill, count]).astype(
-        np.int32)).to(queue.device)
+        return ref.queue_append_plain(queue, keys,
+                                      *map(torch.from_numpy, meta))
+    _keys_ok("keys", keys)
     rc = build.load().cml_queue_append(
-        queue.data_ptr(), queue.shape[1], keys.data_ptr(), rows.shape[0],
-        keys.shape[1], int(count.max(initial=0)), meta[0].data_ptr(),
-        meta[1].data_ptr(), meta[2].data_ptr(), _stream(queue.device))
+        queue.data_ptr(), queue.shape[1], keys.data_ptr(), keys.shape[0],
+        keys.shape[1], meta.ctypes.data, _stream(queue.device))
     _check_cuda("queue_append", rc)
     queue_append.launches += 1
     return queue
@@ -456,18 +503,14 @@ def queue_append_dense(queue: torch.Tensor, keys: torch.Tensor, fill,
                        count) -> torch.Tensor:
     """Whole-plane ring append (batch row i -> ring row i), IN PLACE."""
     kind = _device_kind(queue, keys)
-    fill, count = _append_meta(queue, keys, fill, count, queue.shape[0])
+    meta = _append_meta(queue, keys, None, fill, count)
     if kind == "cpu":
         return ref.queue_append_dense_plain(queue, keys,
-                                            torch.from_numpy(fill),
-                                            torch.from_numpy(count))
-    _keys_ok("keys", keys, keys.shape)
-    meta = torch.from_numpy(np.stack([fill, count]).astype(
-        np.int32)).to(queue.device)
+                                            *map(torch.from_numpy, meta))
+    _keys_ok("keys", keys)
     rc = build.load().cml_queue_append_dense(
         queue.data_ptr(), queue.shape[1], keys.data_ptr(), queue.shape[0],
-        keys.shape[1], int(count.max(initial=0)), meta[0].data_ptr(),
-        meta[1].data_ptr(), _stream(queue.device))
+        keys.shape[1], meta.ctypes.data, _stream(queue.device))
     _check_cuda("queue_append_dense", rc)
     queue_append_dense.launches += 1
     return queue

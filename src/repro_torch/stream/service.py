@@ -50,8 +50,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import sketch as sk
 from repro_torch.core import topk
-from repro_torch.core.counters import (from_numpy, signed_view, to_numpy,
-                                       zeros)
+from repro_torch.core.counters import signed_view, to_numpy, zeros
 from repro_torch.core.sketch import Sketch, SketchSpec
 from repro_torch.kernels import ops
 from repro_torch.stream import tiering
@@ -98,7 +97,16 @@ class _RngLane:
 
 
 class _DeviceRing:
-    """(T, capw) device ring + deterministic host fill mirror."""
+    """(T, capw) device ring + deterministic host fill mirror.
+
+    Appends stage their keys in buffers the ring owns and reuses: on CUDA,
+    two pinned host slots used in turn and one device buffer, so an append
+    is one asynchronous copy and one kernel launch, and the host waits
+    only when it is two appends ahead of the copies; on the CPU, the same
+    packing into plain host slots, which the append reads in place.
+    """
+
+    SLOTS = 2
 
     def __init__(self, capacity: int, device, engine: str):
         self.capacity = int(capacity)
@@ -106,6 +114,43 @@ class _DeviceRing:
         self.engine = engine
         self.queue = ops.queue_init(0, capacity, device)
         self.fill = np.zeros((0,), np.int64)
+        self._cuda = device.type == "cuda"
+        self._host = [self._host_buffer(0) for _ in range(self.SLOTS)]
+        self._copied = ([torch.cuda.Event() for _ in range(self.SLOTS)]
+                        if self._cuda else None)
+        self._dev = (torch.empty(0, dtype=torch.int32, device=device)
+                     if self._cuda else None)
+        self._slot = 0
+
+    def _host_buffer(self, size: int) -> torch.Tensor:
+        return torch.empty(size, dtype=torch.int32, pin_memory=self._cuda)
+
+    def _stage(self, batches: Sequence[np.ndarray]) -> torch.Tensor:
+        """Pack the batches into the next slot as rows of the
+        CHUNK-quantized width n_pad (the padding keeps whatever the slot
+        held: an append reads no key past its row's count); return them as
+        a contiguous (R, n_pad) uint32 tensor on the ring's device."""
+        n = max(b.size for b in batches)
+        n_pad = ops.CHUNK * -(-n // ops.CHUNK)  # CHUNK-quantized launches
+        size = len(batches) * n_pad
+        slot = self._slot
+        self._slot = (slot + 1) % self.SLOTS
+        if self._cuda and not self._copied[slot].query():
+            self._copied[slot].synchronize()  # its last copy must be read
+        if self._host[slot].numel() < size:
+            self._host[slot] = self._host_buffer(size)
+        host = self._host[slot][:size]
+        keys = host.numpy().view(np.uint32).reshape(len(batches), n_pad)
+        for i, b in enumerate(batches):
+            keys[i, :b.size] = b
+        if self._cuda:
+            if self._dev.numel() < size:
+                self._dev = torch.empty(size, dtype=torch.int32,
+                                        device=self.device)
+            host = self._dev[:size].copy_(host, non_blocking=True)
+            self._copied[slot].record(
+                torch.cuda.current_stream(self.device))
+        return host.view(len(batches), n_pad).view(torch.uint32)
 
     def add_row(self) -> int:
         t = self.queue.shape[0]
@@ -121,21 +166,15 @@ class _DeviceRing:
     def append(self, rows: Sequence[int], batches: Sequence[np.ndarray]
                ) -> None:
         """Append per-row microbatches (caller guarantees they fit): one
-        host staging pass, one upload, ONE append launch."""
-        n = max(b.size for b in batches)
-        n_pad = ops.CHUNK * -(-n // ops.CHUNK)  # CHUNK-quantized launches
-        keys = np.zeros((len(rows), n_pad), np.uint32)
-        count = np.empty(len(rows), np.int64)
-        for i, b in enumerate(batches):
-            keys[i, :b.size] = b
-            count[i] = b.size
-        fill = self.fill[list(rows)]
-        self.queue = ops.queue_append(self.queue,
-                                      from_numpy(keys, self.device),
-                                      np.asarray(rows, np.int64), fill, count,
+        host staging pass, one asynchronous upload from pinned memory, ONE
+        append launch; with the kernels, nothing synchronizes."""
+        rows = np.asarray(rows, np.int64)
+        count = np.fromiter((b.size for b in batches), np.int64,
+                            len(batches))
+        self.queue = ops.queue_append(self.queue, self._stage(batches), rows,
+                                      self.fill[rows], count,
                                       engine=self.engine)
-        for r, b in zip(rows, batches):
-            self.fill[r] += b.size
+        self.fill[rows] += count  # rows are unique (the append checks)
 
     def live_slice(self, rows=None):
         """(queue[:, :cols], (T, cols) live mask) for a whole-plane flush,

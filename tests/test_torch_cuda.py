@@ -149,22 +149,110 @@ def test_window_query_kernels_equal_plain(cuda, name, packed, mode):
     assert torch.equal(one, want[1])
 
 
+def _append_case(case, kind, rng, device):
+    """(ring, keys, rows, fill, count) of one append edge case: rows None
+    for the dense kernel (batch row i -> ring row i)."""
+    t, capw, n = 6, 2048, 1024
+    if case == "split":  # more rows than one launch carries
+        t, capw, n = ksk.MAX_APPEND_ROWS + 37, 256, 128
+    if case == "odd_width":  # n % 4 != 0 and a key base off 16 bytes
+        n = 1021
+    ring = tc.from_numpy(rng.integers(0, 2**32, (t, capw), dtype=np.uint64)
+                         .astype(np.uint32), device)
+    r = t if kind == "dense" else max(1, t - 2)
+    rows = None if kind == "dense" else rng.permutation(t)[:r]
+    flat = tc.from_numpy(rng.integers(0, 2**32, r * n + 1, dtype=np.uint64)
+                         .astype(np.uint32), device)
+    keys = (flat[1:] if case == "odd_width" else flat[:-1]).view(r, n)
+    count = rng.integers(1, n + 1, r)
+    fill = rng.integers(0, capw - n + 1, r)
+    if case == "aligned_fill":
+        fill -= fill % 4
+    elif case == "odd_fill":
+        fill |= 1
+    elif case == "zero_count":
+        count[::2] = 0
+    elif case == "full_row":
+        fill = capw - count
+    return ring, keys, rows, fill, count
+
+
 @pytest.mark.cuda
-def test_queue_appends_equal_plain(cuda):
+@pytest.mark.parametrize("kind", ["rows", "dense"])
+@pytest.mark.parametrize("case", ["aligned_fill", "odd_fill", "odd_width",
+                                  "zero_count", "full_row", "split"])
+def test_queue_appends_equal_plain(cuda, case, kind):
+    """Both append kernels against their plain versions on the card: the
+    16- and 4-byte access paths, ragged and zero counts, rows that end at
+    capw, and a call split over launches of MAX_APPEND_ROWS rows."""
     rng = np.random.default_rng(1)
-    ring = tc.from_numpy(rng.integers(0, 2**32, (4, 2048), dtype=np.uint64)
-                         .astype(np.uint32), cuda)
-    keys = tc.from_numpy(rng.integers(0, 2**32, (4, 1024), dtype=np.uint64)
-                         .astype(np.uint32), cuda)
-    for rows, fill, count in (([0, 1, 2, 3], [0, 1024, 7, 2047],
-                               [1024, 1024, 1000, 1]),
-                              ([2, 0], [100, 1024], [5, 1024])):
-        a, b = ring.clone(), ring.clone()
-        ops.queue_append(a, keys[:len(rows)].contiguous(), rows, fill, count,
-                         engine="auto")
-        ops.queue_append(b, keys[:len(rows)].contiguous(), rows, fill, count,
-                         engine="plain")
-        assert torch.equal(signed_view(a), signed_view(b))
+    ring, keys, rows, fill, count = _append_case(case, kind, rng, cuda)
+    a, b = ring.clone(), ring.clone()
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(cuda)
+    ksk.reset_kernel_launches()
+    if kind == "dense":
+        ksk.queue_append_dense(a, keys, fill, count)
+        ref.queue_append_dense_plain(b, keys, dev(fill), dev(count))
+    else:
+        ksk.queue_append(a, keys, rows, fill, count)
+        ref.queue_append_plain(b, keys, dev(rows), dev(fill), dev(count))
+    torch.cuda.synchronize()
+    assert ksk.kernel_launches()["queue_append" if kind == "rows"
+                                 else "queue_append_dense"] == 1
+    assert torch.equal(signed_view(a), signed_view(b))
+    if case == "zero_count":  # a call with nothing to land launches nothing
+        c = a.clone()
+        zeros = np.zeros_like(count)
+        if kind == "dense":
+            ksk.queue_append_dense(c, keys, fill, zeros)
+        else:
+            ksk.queue_append(c, keys, rows, fill, zeros)
+        torch.cuda.synchronize()
+        assert torch.equal(signed_view(c), signed_view(a))
+
+
+@pytest.mark.cuda
+def test_enqueue_many_does_not_synchronize(cuda):
+    """`enqueue_many` on a tracked and a windowed service issues no
+    synchronizing CUDA call: eight microbatches that fill the rings exactly
+    and whose event times stay inside one interval (so nothing flushes and
+    nothing rotates) run under torch.cuda.set_sync_debug_mode("error").
+    The rings then equal those of the plain engine on the same stream."""
+    spec = _spec("CMLS16", False)
+    wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+    names, wnames = [f"t{i}" for i in range(4)], ["x", "y", "z"]
+    rng = np.random.default_rng(6)
+    micro = [{n: rng.integers(0, 2**32, 256, dtype=np.uint64)
+              .astype(np.uint32) for n in names[:4 - i % 2]}
+             for i in range(8)]
+    wmicro = [{n: rng.zipf(1.3, 256).astype(np.uint32) for n in wnames}
+              for _ in range(8)]
+    out = []
+    for engine in ("auto", "plain"):
+        flat = CountService(spec, tenants=names, queue_capacity=2048,
+                            track_top=8, device=cuda, engine=engine)
+        win = CountService(queue_capacity=2048, track_top=8, device=cuda,
+                           engine=engine)
+        for n in wnames:
+            win.add_tenant(n, window=wspec)
+        before = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i, (ev, wev) in enumerate(zip(micro, wmicro)):
+                flat.enqueue_many(ev)
+                win.enqueue_many(wev, ts=600.0 + i)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
+        assert flat.stats["flushes"] == win.stats["flushes"] == 0
+        assert win.planes[0].ring.fill.tolist() == [2048] * 3
+        out.append((flat.planes[0].ring, win.planes[0].ring))
+    for ra, rp in zip(*out):
+        assert np.array_equal(ra.fill, rp.fill)
+        assert torch.equal(signed_view(ra.queue), signed_view(rp.queue))
 
 
 @pytest.mark.cuda

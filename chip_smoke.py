@@ -31,15 +31,23 @@ exit, no result line) if anything disagrees:
                 dispatch on a clean read.  The same stream then runs with
                 engine="plain" on the card; tables, rings, fills, trackers
                 and answers must be equal;
-  4. times   -- CUDA-event times of each kernel, its plain version and,
-                where one exists, a single PyTorch call computing the same
-                function, and for the appends the wrapper's host time
-                by part; the end-to-end ingest rate and the query_all
-                latency;
+  4. times   -- CUDA-event times and wrapper host times of each kernel,
+                its plain version and, where one exists, a single PyTorch
+                call computing the same function, and for the appends the
+                wrapper's host time by part; the end-to-end ingest rate
+                and the query_all latency;
   5. kernels 5-9 -- fused_update, fused_update_rows and the three window
                 queries against their plain versions on the card, at the
                 full-size shapes of the paths below, all five storage
-                formats, both window modes, exact;
+                formats, both window modes, exact; then the edge cases of
+                the two row-mapped kernels at full width in every format:
+                fused_update_rows on a call of MAX_MAPPED_ROWS + 37 rows
+                (two launches), one row, every key distinct, one key,
+                keys 0 and 0xFFFFFFFF, mult == 0 everywhere and (CMLS8)
+                states 246-255 at u = 0; window_query_stacked_rows on a
+                split call, one ring, one key, 16,448 distinct keys a
+                ring, keys 0 and 0xFFFFFFFF, both modes, three weight
+                sets;
   6. paths   -- the windowed service (32 windowed CMLS16 tenants x 8
                 buckets of 60 s, a 1 GiB leaf, track_top=64, beside the
                 CMS32 metrics plane) through 12 epochs of serve_counts'
@@ -59,13 +67,17 @@ exit, no result line) if anything disagrees:
                 fresh windowed service under
                 torch.cuda.set_sync_debug_mode("error") (rings filled
                 exactly, event times inside one interval: no flush, no
-                rotation); a synchronizing call fails the run; rings and
-                fills must equal the plain engine's;
+                rotation); then, on two more fresh services and in the
+                same mode, a tracked flush, window flushes of one and of
+                two fill classes and a windowed enqueue_many(ts=) that
+                flushes and rotates; a synchronizing call fails the run;
+                tables, leaves, cursors, rings, fills and trackers must
+                equal the plain engine's;
   9. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
-                counted), the appends' kernel time alone, then the append
-                wrappers' host time again.
+                counted), every kernel's time alone (its profiler
+                duration), then the append wrappers' host time again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -142,6 +154,25 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def timed(fn, reps: int, setup=None) -> dict:
+    """A kernel wrapper's times: "ms", CUDA events around one call
+    (`cuda_ms`), and "host_us", the host time of one call in us
+    (perf_counter around it, the card idle before it); "timed" keeps fn
+    and setup for the kernel-alone profile of phase 9."""
+    ms = cuda_ms(fn, reps, setup)
+    total = 0.0
+    for _ in range(reps):
+        if setup:
+            setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"ms": ms, "host_us": total / reps * 1e6,
+            "timed": (fn, setup, reps)}
+
+
 def profile_epoch(drive) -> dict:
     """Device time by kernel, and host time by op, over one ingest epoch
     (`drive()`: the microbatches' `enqueue_many` + `flush`), from
@@ -180,24 +211,48 @@ def profile_epoch(drive) -> dict:
             "device_top": top(device_rows), "host_top": top(host_rows)}
 
 
-def kernel_device_ms(fn, reps: int, name: str) -> float:
+# the profiler's name of each wrapper's kernel (a substring of it)
+KERNEL_NAMES = {
+    "fused_query": "fused_query_kernel",
+    "fused_update_score": "fused_update_score_kernel",
+    "queue_append": "RowsMeta",
+    "queue_append_dense": "DenseMeta",
+    "fused_update": "fused_update_score_kernel",
+    "fused_update_rows": "fused_update_rows_kernel",
+    "window_query": "window_query_kernel",
+    "window_query_stacked": "window_query_kernel",
+    "window_query_stacked_rows": "window_query_rows_kernel",
+}
+
+
+def kernel_device_ms(fn, reps: int, name: str, setup=None) -> float:
     """Mean device duration in ms of the kernels whose profiler name holds
     `name`, over `reps` calls of fn() under torch.profiler (one warm-up
-    first): the kernel alone, without the host work around its launch.
-    The mean is over the launches the profiler recorded, which may miss
-    one of a run."""
+    first; `setup`, untimed by the name filter, before each call): the
+    kernel alone, without the host work around its launch.  The mean is
+    over the launches the profiler recorded, which may miss one of a run;
+    a session that recorded none of them is run again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CPU and name in ev.key:
-            total += ev.self_device_time_total / 1e3
-            count += ev.count
+    for _ in range(3):  # a session now and then records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if setup:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if (ev.device_type != torch.autograd.DeviceType.CPU
+                    and name in ev.key):
+                total += ev.self_device_time_total / 1e3
+                count += ev.count
+        if count:
+            break
     if not 0 < count <= reps:
         fail(f"torch.profiler saw {count} launches of {name!r} in {reps} "
              "calls")
@@ -448,6 +503,8 @@ def check_slice2_kernels(dev, formats, epoch_keys) -> tuple[dict, dict]:
         log(f"kernels 5-9 {fname}: fused_update tables, fused_update_rows "
             f"leaf (3 flushes), window_query / _stacked / _stacked_rows "
             "(sum and max, 3 weight sets) equal to their plain versions")
+        check_rowmap_edges(dev, fname, spec, lk, last, weight_sets, cand,
+                           same)
         if fname == "CMLS16":
             keep["window"] = dict(spec=spec, leaf=lk, probes=probes,
                                   cand=cand, rows=refresh_rows,
@@ -455,6 +512,163 @@ def check_slice2_kernels(dev, formats, epoch_keys) -> tuple[dict, dict]:
         else:
             del lk
     return errs, keep
+
+
+# ---- edge cases of the two row-mapped kernels (slice 4) ---------------------
+
+UPDATE_EDGES = ("split", "one_row", "all_distinct", "one_key",
+                "extreme_keys", "mult_zero", "high_states")
+QUERY_EDGES = ("split", "one_row", "one_key", "all_distinct",
+               "extreme_keys")
+PLAIN_ROWS = 128  # rows a plain-version call lands (its int64 cells)
+
+
+def distinct_keys(shape) -> np.ndarray:
+    """Distinct uint32 keys over the whole range (an odd multiplier is a
+    bijection mod 2^32)."""
+    n = int(np.prod(shape))
+    return (np.arange(n, dtype=np.uint64) * 2654435761 % 2**32).astype(
+        np.uint32).reshape(shape)
+
+
+def update_edge(case, dev, spec, flat, flush, rng, gen):
+    """(tables, rows, raw keys, weights, uniforms) of one fused_update_rows
+    edge case at the format's full width: on the window flush's filled
+    flat leaf, but for "split" (MAX_MAPPED_ROWS + 37 rows of a fresh
+    stack of random cells: two launches) and "high_states" (CMLS8: every
+    cell in states 246-255, u = 0 and n in {450, 1489, 1923, 10000},
+    where nfold steps one state past the reference property test's
+    bound)."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import from_numpy, signed_view
+    from repro_torch.kernels import sketch as ksk
+    rows = flush["rows"]
+    r, n = flush["keys"].shape
+    tables = flat
+    if case == "split":
+        t = ksk.MAX_MAPPED_ROWS + 40
+        tables = torch.empty((t,) + tuple(flat.shape[1:]), dtype=flat.dtype,
+                             device=dev)
+        signed_view(tables).view(torch.uint8).random_(0, 256, generator=gen)
+        rows = rng.permutation(t)[:t - 3]
+        r, n = rows.size, 2048
+    elif case == "one_row":
+        rows, r = rows[:1], 1
+    elif case == "high_states":
+        states = torch.randint(246, 256, (r, 2, spec.width),
+                               generator=gen, device=dev)
+        tables = sk.storage_table(states, spec)
+        rows = rng.permutation(r)
+    raw = flush["keys"][:r]
+    if case == "split":
+        raw = from_numpy((rng.zipf(1.3, (r, n)) % 50_000).astype(np.uint32),
+                         dev)
+    elif case == "all_distinct":
+        raw = from_numpy(distinct_keys((r, n)), dev)
+    elif case == "one_key":
+        raw = from_numpy(np.full((r, n), 4242, np.uint32), dev)
+    elif case == "extreme_keys":
+        raw = from_numpy(rng.choice(np.array([0, 0xFFFFFFFF], np.uint32),
+                                    (r, n)), dev)
+    weights = torch.ones((r, n), dtype=torch.float32, device=dev)
+    unif = torch.rand((r, n), generator=gen, device=dev)
+    if case == "mult_zero":
+        weights.zero_()
+    elif case == "high_states":
+        weights = torch.from_numpy(rng.choice(
+            np.array([450, 1489, 1923, 10000], np.float32), (r, n))).to(dev)
+        unif.zero_()
+    return tables, np.asarray(rows), raw, weights, unif
+
+
+def query_edge(case, dev, cand, rng):
+    """(rows, candidate keys) of one window_query_stacked_rows edge case on
+    the filled 32-ring leaf: "split" reads MAX_MAPPED_ROWS + 37 rings
+    (repeats allowed: a read) in two launches."""
+    from repro_torch.core.counters import from_numpy, signed_view
+    from repro_torch.kernels import sketch as ksk
+    r, n = cand.shape
+    rows = np.arange(r)[::-1].copy()
+    keys = cand
+    if case == "split":
+        rows = rng.integers(0, r, ksk.MAX_MAPPED_ROWS + 37)
+        keys = signed_view(cand)[torch.from_numpy(rows).to(dev), :PROBES]
+        keys = keys.contiguous().view(torch.uint32)
+    elif case == "one_row":
+        rows, keys = rows[:1], cand[rows[0]][None].contiguous()
+    elif case == "one_key":
+        keys = from_numpy(np.full((r, n), 5, np.uint32), dev)
+    elif case == "all_distinct":
+        keys = from_numpy(distinct_keys((r, n)), dev)
+    elif case == "extreme_keys":
+        keys = from_numpy(rng.choice(np.array([0, 0xFFFFFFFF], np.uint32),
+                                     (r, n)), dev)
+    return rows, keys
+
+
+def check_rowmap_edges(dev, fname, spec, leaf, flush, weight_sets, cand,
+                       same) -> None:
+    """Phase 5, edge cases: fused_update_rows and
+    window_query_stacked_rows against their plain versions at full width
+    in one storage format, exactly: UPDATE_EDGES (a call split over
+    launches, R = 1, every key distinct, one key, keys 0 and 0xFFFFFFFF,
+    mult == 0 everywhere, CMLS8 states >= 246 at u = 0) and QUERY_EDGES
+    (a split call, R = 1, one key, 16,448 distinct keys a ring, keys 0
+    and 0xFFFFFFFF) in both modes and three weight sets.  The plain update
+    lands PLAIN_ROWS rows a call (rows are independent)."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import signed_view
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sketch as ksk
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    kw = dict(seeds=ops._seeds_tuple(spec), width=spec.width,
+              counter=spec.counter, cpl=spec.cells_per_lane)
+    seed_t = ops._seed_tensor(spec, dev)
+    flat = leaf.view((-1,) + tuple(leaf.shape[2:]))
+    done = []
+    for case in UPDATE_EDGES:
+        if case == "high_states" and spec.counter.bits != 8:
+            continue
+        base, rows, raw, weights, unif = update_edge(case, dev, spec, flat,
+                                                     flush, rng, gen)
+        skeys, mult = sk.dedup_weighted(raw, weights)
+        got = base.clone()
+        ksk.fused_update_rows(got, ops.as_device_keys(skeys, dev), mult,
+                              unif, rows, **kw)
+        want = base.clone() if case == "mult_zero" or base is flat else base
+        for g in range(0, rows.size, PLAIN_ROWS):
+            sl = slice(g, g + PLAIN_ROWS)
+            ref.fused_update_rows_plain(
+                want, skeys[sl], mult[sl], unif[sl],
+                torch.from_numpy(rows[sl]).to(dev), seed_t, spec.counter,
+                ksk.CHUNK, cpl=spec.cells_per_lane)
+        torch.cuda.synchronize()
+        same("fused_update_rows", f"{fname} {case}", got, want)
+        if case == "mult_zero" and not torch.equal(signed_view(got),
+                                                   signed_view(base)):
+            fail(f"fused_update_rows {fname} mult_zero wrote cells")
+        done.append(f"{case} ({rows.size} rows)")
+        del base, got, want, skeys, mult, unif, raw
+    qkw = dict(width=spec.width, counter=spec.counter,
+               cpl=spec.cells_per_lane)
+    for case in QUERY_EDGES:
+        rows, keys = query_edge(case, dev, cand, rng)
+        rows_t = torch.from_numpy(rows).to(dev)
+        for mode in ("sum", "max"):
+            for wname, wts in weight_sets:
+                rw = wts[rows_t].contiguous()
+                got = ksk.window_query_stacked_rows(
+                    leaf, keys, rw, rows, mode=mode, seeds=kw["seeds"],
+                    **qkw)
+                want = ref.window_query_stacked_rows_plain(
+                    leaf, keys, rw, rows_t, seed_t, mode=mode, **qkw)
+                same("window_query_stacked_rows",
+                     f"{fname} {case} {mode} {wname}", got, want)
+    log(f"row-mapped edge cases {fname}: fused_update_rows {done}, "
+        f"window_query_stacked_rows {list(QUERY_EDGES)} (sum and max, 3 "
+        "weight sets) equal to their plain versions")
 
 
 def window_stream():
@@ -703,9 +917,8 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     live = u["mult"] > 0
     n_live = int(live.sum())
     report["fused_update"] = dict(
-        ms=cuda_ms(lambda: ksk.fused_update(work, u["keys"], u["mult"],
-                                            u["unif"], **kw), 10,
-                   setup=reset),
+        **timed(lambda: ksk.fused_update(work, u["keys"], u["mult"],
+                                         u["unif"], **kw), 10, setup=reset),
         plain_ms=cuda_ms(lambda: ref.fused_update_plain(
             work, u["skeys"], u["mult"], u["unif"], seed_t, spec.counter,
             ksk.CHUNK), 3, setup=reset),
@@ -725,8 +938,8 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     live = f["mult"] > 0
     n_live = int(live.sum())
     report["fused_update_rows"] = dict(
-        ms=cuda_ms(lambda: ksk.fused_update_rows(
-            flat, f["keys"], f["mult"], f["unif"], f["rows"], **kw), 10,
+        **timed(lambda: ksk.fused_update_rows(
+            flat, f["keys"], f["mult"], f["unif"], f["rows"], **kw), 20,
             setup=reset_flat),
         plain_ms=cuda_ms(lambda: ref.fused_update_rows_plain(
             flat, f["skeys"], f["mult"], f["unif"], rows_t, seed_t,
@@ -754,22 +967,22 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
         return keys.numel() * b * (spec.depth * 12 + 30)
     one_keys, one_w = probes[0].contiguous(), wts[0].contiguous()
     report["window_query"] = dict(
-        ms=cuda_ms(lambda: ksk.window_query(leaf[0], one_keys, one_w,
-                                            seeds=seeds, **qkw), 50),
+        **timed(lambda: ksk.window_query(leaf[0], one_keys, one_w,
+                                         seeds=seeds, **qkw), 50),
         plain_ms=cuda_ms(lambda: ref.window_query_plain(
             leaf[0], one_keys, one_w, seed_t, **qkw), 10),
         bytes=qbytes(one_keys[None], 1), ops=qops(one_keys),
         shape=f"ring {tuple(leaf.shape[1:])} uint16, keys ({PROBES},)")
     report["window_query_stacked"] = dict(
-        ms=cuda_ms(lambda: ksk.window_query_stacked(leaf, probes, wts,
-                                                    seeds=seeds, **qkw), 50),
+        **timed(lambda: ksk.window_query_stacked(leaf, probes, wts,
+                                                 seeds=seeds, **qkw), 50),
         plain_ms=cuda_ms(lambda: ref.window_query_stacked_plain(
             leaf, probes, wts, seed_t, **qkw), 10),
         bytes=qbytes(probes, probes.shape[0]), ops=qops(probes),
         shape=f"rings {tuple(leaf.shape)} uint16, keys "
               f"{tuple(probes.shape)}")
     report["window_query_stacked_rows"] = dict(
-        ms=cuda_ms(lambda: ksk.window_query_stacked_rows(
+        **timed(lambda: ksk.window_query_stacked_rows(
             leaf, cand, rw, rows, seeds=seeds, **qkw), 20),
         plain_ms=cuda_ms(lambda: ref.window_query_stacked_rows_plain(
             leaf, cand, rw, rows_d, seed_t, **qkw), 5),
@@ -965,6 +1178,88 @@ def check_enqueue_no_sync(dev, spec) -> dict:
         "the windowed service under set_sync_debug_mode('error'), no "
         f"error; rings and fills equal the plain engine's; launches "
         f"{launches}")
+    return launches
+
+
+def check_flush_no_sync(dev, spec) -> dict:
+    """Phase 8, flushes: on a fresh tracked service (64 tenants beside the
+    metrics plane) and a fresh windowed one (32 tenants), under
+    torch.cuda.set_sync_debug_mode("error"): a tracked flush of one full
+    epoch; a window flush of one fill class (every windowed tenant one
+    8,192-key microbatch); one of two fill classes (half the tenants one
+    more microbatch, half three); then a windowed `enqueue_many(...,
+    ts=)` two intervals on, which flushes the pending events, rotates and
+    appends.  A synchronizing call fails the run.  The same stream on the
+    plain engine (outside the debug mode) must leave equal tables, leaves,
+    cursors, watermarks, rings, fills and trackers.  Returns the kernel
+    launches of the run with kernels."""
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 7)
+    many, _ = sc.make_epoch(rng, TENANTS, MICRO, BATCH)
+    pairs, _ = sc.make_trending(rng, WINDOW_TENANTS, 5, BATCH, 0.0)
+    ev = [p[0] for p in pairs]
+    names = sc.trending_names(WINDOW_TENANTS)
+    light = set(names[:WINDOW_TENANTS // 2])
+    start = 60.0 * 2000  # the start of an interval
+    steps = [("one class", [(ev[0], start)]),
+             ("two classes", [(ev[1], start + 1),
+                              ({n: ev[2][n] for n in names
+                                if n not in light}, start + 2),
+                              ({n: ev[3][n] for n in names
+                                if n not in light}, start + 3)]),
+             ("flush and rotate", [({n: ev[4][n] for n in light},
+                                    start + 4),
+                                   (ev[0], start + 125)])]
+
+    def drive(engine: str):
+        tracked = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                                   device=dev, engine=engine)
+        windowed = sc.build_service(spec, 0, RING, SEED, TRACK_TOP,
+                                    device=dev, engine=engine,
+                                    trending=WINDOW_TENANTS)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        what = "tracked flush"
+        try:
+            for events in many:
+                tracked.enqueue_many(events)
+            tracked.flush()
+            for what, batches in steps:
+                for events, ts in batches:
+                    windowed.enqueue_many(events, ts=ts)
+                if what != "flush and rotate":
+                    windowed.flush()
+        except RuntimeError as err:
+            fail(f"{what} synchronized under set_sync_debug_mode('error'): "
+                 f"{err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        return tracked, windowed
+
+    ksk.reset_kernel_launches()
+    auto = drive("auto")
+    launches = ksk.kernel_launches()
+    plain = drive("plain")
+    for what, a, p in zip(("tracked", "windowed"), auto, plain):
+        compare_services(a, p, f"sync-free flushes, {what} service")
+    cursors = auto[1].planes[-1].cursors
+    if set(cursors.tolist()) != {2}:
+        fail(f"sync-free flushes: cursors {cursors.tolist()}, expected every "
+             "ring rotated by two intervals")
+    missing = [k for k in ("fused_update_score", "fused_update_rows",
+                           "window_query_stacked_rows") if not launches[k]]
+    if missing:
+        fail(f"sync-free flushes launched none of {missing}")
+    log("sync-free flushes: a tracked flush, window flushes of one and two "
+        "fill classes and a windowed enqueue_many(ts=) that flushes and "
+        "rotates, under set_sync_debug_mode('error'), no error; tables, "
+        "leaves, cursors, rings, fills and trackers equal the plain "
+        f"engine's; launches {launches}")
+    del auto, plain
     return launches
 
 
@@ -1195,7 +1490,7 @@ def main(device: str = "cuda") -> None:
     # fused_query at query_all's shape (64 tenants x 1024 probes)
     spec_q = qry_inputs["spec"]
     tq, kq = qry_inputs["tables"], qry_inputs["keys"]
-    ms = cuda_ms(lambda: ksk.fused_query(
+    t_q = timed(lambda: ksk.fused_query(
         tq, kq, seeds=seeds_of(spec_q), width=spec_q.width,
         counter=spec_q.counter), 50)
     pms = cuda_ms(lambda: ref.fused_query_plain(
@@ -1205,7 +1500,7 @@ def main(device: str = "cuda") -> None:
         torch.int64) & 0xFFFFFFFF) * SECTOR
     qops = nkeys * (spec_q.depth * 12 + 30)
     report["fused_query"] = dict(
-        ms=ms, plain_ms=pms, library_ms=None, max_abs_err=qry_err,
+        **t_q, plain_ms=pms, library_ms=None, max_abs_err=qry_err,
         bytes=qbytes, ops=qops,
         shape=f"tables {tuple(tq.shape)} uint16, keys {tuple(kq.shape)}")
 
@@ -1218,7 +1513,7 @@ def main(device: str = "cuda") -> None:
     def reset_work():
         work.copy_(src)
 
-    ms = cuda_ms(lambda: ksk.fused_update_score(
+    t_u = timed(lambda: ksk.fused_update_score(
         work, u["keys"], u["mult"], u["unif"], u["cand"], rows_d,
         seeds=seeds_of(spec_u), width=spec_u.width,
         counter=spec_u.counter), 10, setup=reset_work)
@@ -1238,7 +1533,7 @@ def main(device: str = "cuda") -> None:
     uops = n_live * (spec_u.depth * 14 + 60) + r * m * (spec_u.depth * 12
                                                         + 30)
     report["fused_update_score"] = dict(
-        ms=ms, plain_ms=pms, library_ms=None, max_abs_err=upd_err,
+        **t_u, plain_ms=pms, library_ms=None, max_abs_err=upd_err,
         bytes=ubytes, ops=uops,
         shape=f"tables {(TENANTS, 2, spec_u.storage_width)} uint16, keys "
               f"({r}, {n}), {n_live} distinct, cand ({r}, {m})")
@@ -1250,8 +1545,8 @@ def main(device: str = "cuda") -> None:
     ring = base_ring.clone()
     fill_t = torch.from_numpy(fill_d).to(dev)
     count_t = torch.from_numpy(count_d).to(dev)
-    ms = cuda_ms(lambda: ksk.queue_append_dense(ring, dense_keys, fill_d,
-                                                count_d), 50)
+    t_a = timed(lambda: ksk.queue_append_dense(ring, dense_keys, fill_d,
+                                               count_d), 50)
     pms = cuda_ms(lambda: ref.queue_append_dense_plain(
         ring, dense_keys, fill_t, count_t), 20)
     jj = torch.arange(BATCH, device=dev)
@@ -1261,15 +1556,15 @@ def main(device: str = "cuda") -> None:
     dense_index_put = lambda: signed_view(ring).index_put_((dr, dc), dv)
     lms = cuda_ms(dense_index_put, 50)
     report["queue_append_dense"] = dict(
-        ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=0.0,
+        **t_a, plain_ms=pms, library_ms=lms, max_abs_err=0.0,
         bytes=TENANTS * BATCH * 8 + 2 * TENANTS * 4, ops=0,
         shape=f"ring ({TENANTS}, {capw}), keys ({TENANTS}, {BATCH})")
 
     one_keys = dense_keys[:1].contiguous()
     one_rows, one_fill, one_count = (np.array([0]), np.array([0]),
                                      np.array([BATCH]))
-    ms = cuda_ms(lambda: ksk.queue_append(ring, one_keys, one_rows, one_fill,
-                                          one_count), 50)
+    t_a = timed(lambda: ksk.queue_append(ring, one_keys, one_rows, one_fill,
+                                         one_count), 50)
     pms = cuda_ms(lambda: ref.queue_append_plain(
         ring, one_keys, torch.zeros(1, dtype=torch.int64, device=dev),
         torch.zeros(1, dtype=torch.int64, device=dev),
@@ -1280,7 +1575,7 @@ def main(device: str = "cuda") -> None:
     rows_index_put = lambda: signed_view(ring).index_put_((rr, rc), rv)
     lms = cuda_ms(rows_index_put, 50)
     report["queue_append"] = dict(
-        ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=0.0,
+        **t_a, plain_ms=pms, library_ms=lms, max_abs_err=0.0,
         bytes=BATCH * 8 + 3 * 4, ops=0,
         shape=f"ring ({TENANTS}, {capw}), keys (1, {BATCH})")
     append_calls = {
@@ -1357,8 +1652,9 @@ def main(device: str = "cuda") -> None:
         report2[name]["max_abs_err"] = err
     report.update(report2)
 
-    # ---- 8. enqueue_many without a synchronizing call ------------------------
+    # ---- 8. enqueue_many and the flushes without a synchronizing call ------
     sync_launches = check_enqueue_no_sync(dev, spec)
+    flush_launches = check_flush_no_sync(dev, spec)
 
     # ---- 9. profiles ---------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
@@ -1369,12 +1665,10 @@ def main(device: str = "cuda") -> None:
     # many earlier sessions as before, so the epochs stay comparable.
     profile = profile_epoch(drive_profiled)
     e2e2["profile_window_epoch"] = profile_epoch(drive_window)
-    for name, meta in (("queue_append", "RowsMeta"),
-                       ("queue_append_dense", "DenseMeta")):
-        keys, rows, fill, count, _ = append_calls[name]
-        args = (fill, count) if rows is None else (rows, fill, count)
-        report[name]["device_ms"] = kernel_device_ms(
-            lambda: getattr(ksk, name)(ring, keys, *args), 50, meta)
+    for name, kernel in KERNEL_NAMES.items():
+        fn, setup, reps = report[name].pop("timed")
+        report[name]["kernel_alone_ms"] = kernel_device_ms(
+            fn, reps, kernel, setup)
     for what, prof in (("tracked", profile),
                        ("windowed", e2e2["profile_window_epoch"])):
         log(f"one {what} epoch under torch.profiler: wall "
@@ -1397,7 +1691,7 @@ def main(device: str = "cuda") -> None:
         "queue_append": (src + "526", csrc + "queue_append.cu"),
         "queue_append_dense": (src + "587", csrc + "queue_append.cu"),
         "fused_update": (src + "259", csrc + "fused_update_score.cu"),
-        "fused_update_rows": (src + "344", csrc + "fused_update_score.cu"),
+        "fused_update_rows": (src + "344", csrc + "fused_update_rows.cu"),
         "window_query": (src + "618", csrc + "window_query.cu"),
         "window_query_stacked": (src + "686", csrc + "window_query.cu"),
         "window_query_stacked_rows": (src + "741", csrc + "window_query.cu"),
@@ -1408,22 +1702,25 @@ def main(device: str = "cuda") -> None:
         t_bytes = rep["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rep["ops"] / FP32_OPS_PER_S * 1e3
         launches = (main_launches[name] + win_launches[name]
-                    + flat_launches[name] + sync_launches[name])
+                    + flat_launches[name] + sync_launches[name]
+                    + flush_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
-        device = ("" if "device_ms" not in rep
-                  else f" (kernel alone {rep['device_ms']:.5f} ms)")
-        log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms{device}, plain "
-            f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']}, bound "
-            f"{max(t_bytes, t_ops):.5f} ms ({rep['bytes']} B, {rep['ops']} "
-            f"ops); launches tracked / windowed / untracked path / "
-            f"sync-free enqueue {main_launches[name]} / {win_launches[name]}"
-            f" / {flat_launches[name]} / {sync_launches[name]}")
+        log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
+            f"{rep['kernel_alone_ms']:.5f} ms, wrapper host "
+            f"{rep['host_us']:.1f} us), plain {rep['plain_ms']:.4f} ms, "
+            f"library {rep['library_ms']}, bound {max(t_bytes, t_ops):.5f} "
+            f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
+            f"windowed / untracked path / sync-free enqueue / sync-free "
+            f"flushes {main_launches[name]} / {win_launches[name]} / "
+            f"{flat_launches[name]} / {sync_launches[name]} / "
+            f"{flush_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-            "plain_ms": rep["plain_ms"],
+            "kernel_alone_ms": rep["kernel_alone_ms"],
+            "host_us": rep["host_us"], "plain_ms": rep["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rep["library_ms"]})

@@ -12,7 +12,8 @@ threefry scheme, element i of a draw of `shape` is
 which is pure integer work, so it is reproduced here bit for bit with
 int64 tensor ops on the caller's device (no host round trip).  `rows`
 draws only some rows of a 2-D grid: row r column c takes flat index
-r * n_cols + c, exactly the element a full draw gathered at r holds.
+r * n_cols + c, exactly the element a full draw gathered at r holds; the
+rows' offsets reach the device without a synchronize (`core/staging.py`).
 
 `split(key, num)` is `jax.random.split` on a raw key under the same
 scheme: key i is the pair threefry2x32(key, (0, i)), computed on the host
@@ -23,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import staging
 from repro_torch.core.counters import MASK32
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -78,7 +80,7 @@ def uniform_rows(key, total: int, n_cols: int, rows, device="cpu"
     rows = np.asarray(rows, np.int64).reshape(-1)
     if rows.size and (rows.min() < 0 or rows.max() >= total):
         raise ValueError(f"rows must lie in [0, {total})")
-    base = torch.from_numpy(rows * int(n_cols)).to(device)
+    base = staging.upload(device, rows * int(n_cols))[0]
     cols = torch.arange(n_cols, dtype=torch.int64, device=device)
     return uniform_indices(key, base[:, None] + cols[None, :])
 

@@ -41,7 +41,8 @@ SIGNATURES = {
     "cml_fused_update_score": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P,
                                _I, _P, _U, _I, _I, _U, _F, _F, _P],
     # tables, depth, words_per_row, rows, r, keys, mult, unif, n, seeds,
-    # width, bits, log, max_state, logb, bm1, stream
+    # width, bits, log, max_state, logb, bm1, stream; rows: host int64 (r,),
+    # passed on to the kernel by value
     "cml_fused_update_rows": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _U,
                               _I, _I, _U, _F, _F, _P],
     # tables, depth, words_per_row, t, keys, mult, unif, n, seeds, width,
@@ -50,7 +51,8 @@ SIGNATURES = {
                          _F, _F, _P],
     # the three window queries: tables, r, buckets, depth, words_per_row,
     # rows, keys, n, weights, out, mode_max, seeds, width, bits, log,
-    # max_state, logb, bm1, stream
+    # max_state, logb, bm1, stream; rows: NULL for the first two, host
+    # int64 (r,) for the third, passed on to the kernel by value
     **{name: [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _U, _I, _I, _U,
               _F, _F, _P]
        for name in ("cml_window_query", "cml_window_query_stacked",

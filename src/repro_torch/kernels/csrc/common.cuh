@@ -23,9 +23,25 @@
 // rows of (row, fill, count) int32 are 12 KB of the 32,764-byte kernel
 // parameter block that sm_90 takes under CUDA 12.1 and later.
 #define CML_APPEND_MAX_ROWS 1024
+// Rows one row-mapped update (fused_update_rows.cu) or ring read
+// (window_query.cu, cml_window_query_stacked_rows) launch carries by value:
+// 1,024 int32 row indices, 4 KB of the parameter block.
+#define CML_ROWMAP_MAX_ROWS 1024
 
 struct RowSeeds {
   uint32_t s[CML_MAX_DEPTH];
+};
+
+// A launch's row map, by value in the parameter block (a __grid_constant__
+// kernel argument): block i serves table or ring rows[i].  Calls of at
+// most CML_SMALL_ROWS rows pass the small struct (a launch's host cost
+// grows with its parameter block); larger calls pass CML_ROWMAP_MAX_ROWS
+// rows a launch and split over launches.
+#define CML_SMALL_ROWS 64
+template <int CAP>
+struct RowMap {
+  static constexpr int kCap = CAP;
+  int32_t rows[CAP];
 };
 
 struct Counter {
@@ -103,6 +119,26 @@ __device__ __forceinline__ uint32_t cml_nfold(uint32_t state, float n,
   float nw = (n > 0.0f) ? c2 + inc : s;
   nw = fminf(fmaxf(nw, 0.0f), (float)c.max_state);
   return (uint32_t)nw;
+}
+
+// Host side: opt `kern` in to `bytes` of dynamic shared memory on the
+// current device, once a device (the attribute is per device); `done`:
+// the caller's CML_MAX_DEVICES flags for this kernel.
+#define CML_MAX_DEVICES 64
+template <typename Kernel>
+static inline cudaError_t cml_smem_opt_in(Kernel kern, int bytes,
+                                          bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= CML_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 // Host side: fill the by-value launch structs.

@@ -1,18 +1,18 @@
-// fused_update_score / fused_update_rows / fused_update: one flush epoch
-// of R table rows, in place: the CHUNK-sequential conservative update,
-// then (optionally) the scores of each row's candidate keys against its
-// updated table.  One template, three C entry points:
+// fused_update_score / fused_update: one flush epoch of R table rows, in
+// place: the CHUNK-sequential conservative update, then (optionally) the
+// scores of each row's candidate keys against its updated table.  One
+// template, two C entry points:
 //
 //   cml_fused_update_score  row map + score phase; replaces
 //       fused_update_score_pallas (src/repro/kernels/sketch.py:422, body
 //       _fused_update_score_kernel :389, update body _fused_update_kernel
 //       :155) -- the tracked flush;
-//   cml_fused_update_rows   row map, no score phase; replaces
-//       fused_update_rows_pallas (:344) -- the untracked skewed flush and
-//       the window flush, whose rows index the flat (T*B, d, w) leaf;
 //   cml_fused_update        no row map (batch row i -> table i), no score
 //       phase; replaces fused_update_pallas (:259; update_pallas :234 is
 //       its T = 1 case) -- the untracked all-active flush.
+//
+// (The row-mapped update without a score phase, fused_update_rows_pallas
+// :344, has its own kernel in fused_update_rows.cu.)
 //
 // Semantics kept from the reference: CHUNK = 1024 keys is part of the
 // result, not a tile size.  Within a chunk every key reads the row minima
@@ -188,16 +188,6 @@ extern "C" int cml_fused_update_score(
   return launch_update(tables, depth, words_per_row, rows, r, keys, mult,
                        unif, n, cand, est, m, seeds, width, bits, log_counter,
                        max_state, logb, bm1, stream);
-}
-
-extern "C" int cml_fused_update_rows(
-    void* tables, int depth, int words_per_row, const void* rows, int r,
-    const void* keys, const void* mult, const void* unif, int n,
-    const uint32_t* seeds, uint32_t width, int bits, int log_counter,
-    uint32_t max_state, float logb, float bm1, void* stream) {
-  return launch_update(tables, depth, words_per_row, rows, r, keys, mult,
-                       unif, n, nullptr, nullptr, 0, seeds, width, bits,
-                       log_counter, max_state, logb, bm1, stream);
 }
 
 extern "C" int cml_fused_update(

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import sketch as sk
+from repro_torch.core import staging
 from repro_torch.core.counters import from_i64, from_numpy, signed_view, zeros
 from repro_torch.core.hashing import as_i64, host_row_seeds
 from repro_torch.kernels import ref
@@ -212,7 +213,7 @@ def window_query_stacked(tables: torch.Tensor, spec: sk.SketchSpec, keys,
               cpl=spec.cells_per_lane)
     if engine == "plain":
         rows_d = (torch.arange(n_rings, device=dev) if rows is None else
-                  torch.from_numpy(np.asarray(rows, np.int64)).to(dev))
+                  staging.upload(dev, np.asarray(rows, np.int64))[0])
         return ref.window_query_stacked_rows_plain(
             tables, keys, weights, rows_d, _seed_tensor(spec, dev), **kw)
     if rows is None:
@@ -298,8 +299,8 @@ def _update_chunked(tables, spec, keys, weights, rng, grid, engine,
             return ref.fused_update_plain(tables, sorted_keys, mult,
                                           uniforms, seed_t, chunk=CHUNK, **kw)
         return ref.fused_update_rows_plain(
-            tables, sorted_keys, mult, uniforms,
-            torch.from_numpy(rows).to(dev), seed_t, chunk=CHUNK, **kw)
+            tables, sorted_keys, mult, uniforms, staging.upload(dev, rows)[0],
+            seed_t, chunk=CHUNK, **kw)
     keys_u = from_i64(sorted_keys, torch.uint32)
     kw.update(seeds=_seeds_tuple(spec), width=spec.width)
     if rows is None:
@@ -383,12 +384,14 @@ def window_advance_rows(tables: torch.Tensor, cursors, steps
     PLACE, ONE masked zeroing for every tenant: ring t clears the
     steps[t] buckets after cursors[t] (all of them when steps[t] >= B);
     steps[t] == 0 leaves it untouched.  The caller owns the host cursor
-    mirror: cursor' = (cursor + steps) % B."""
+    mirror: cursor' = (cursor + steps) % B.  The cleared buckets' flat
+    indices t * B + b reach the device without a synchronize."""
     _launch("window_advance_rows")
-    ti, bi = np.nonzero(rotation_mask(cursors, steps, tables.shape[1]))
-    if ti.size:
-        idx = torch.from_numpy(np.stack([ti, bi])).to(tables.device)
-        signed_view(tables)[idx[0], idx[1]] = 0
+    t, b = tables.shape[:2]
+    flat = np.flatnonzero(rotation_mask(cursors, steps, b))
+    if flat.size:
+        idx = staging.upload(tables.device, flat.astype(np.int64))[0]
+        signed_view(tables).view(t * b, -1).index_fill_(0, idx, 0)
     return tables
 
 
@@ -429,7 +432,7 @@ def update_score_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
     sorted_keys, mult = sk.dedup_weighted(keys, weights)
     uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
     cand = as_device_keys(cand, dev)
-    rows_d = torch.from_numpy(rows).to(dev)
+    rows_d = staging.upload(dev, rows)[0]
     if engine == "plain":
         return ref.update_score_rows_ref(
             tables, sorted_keys, mult, uniforms, rows_d, cand,
@@ -485,20 +488,24 @@ def queue_append(queue: torch.Tensor, keys, rows, fill, count,
     return ksk.queue_append(queue, keys, rows, fill, count)
 
 
-def _live_mask(fill, cols: int, device) -> torch.Tensor:
-    fill_d = torch.from_numpy(np.asarray(fill, np.int64)).to(device)
-    return (torch.arange(cols, device=device)[None, :]
+def _live_mask(fill_d: torch.Tensor, cols: int) -> torch.Tensor:
+    return (torch.arange(cols, device=fill_d.device)[None, :]
             < fill_d[:, None]).to(torch.float32)
 
 
 def flush_inputs(queue: torch.Tensor, fill, cols: int):
     """(queue[:, :cols], (T, cols) float32 live-slot mask); only the (T,)
-    fill vector crosses to the device."""
-    return queue[:, :cols], _live_mask(fill, cols, queue.device)
+    fill vector crosses to the device, without a synchronize."""
+    fill_d = staging.upload(queue.device, np.asarray(fill, np.int64))[0]
+    return queue[:, :cols], _live_mask(fill_d, cols)
 
 
 def flush_rows_inputs(queue: torch.Tensor, fill, rows, cols: int):
-    """Active-row flush inputs: (queue[rows, :cols], (R, cols) mask)."""
-    rows_d = torch.from_numpy(np.asarray(rows, np.int64)).to(queue.device)
+    """Active-row flush inputs: (queue[rows, :cols], (R, cols) mask); the
+    rows and their fills cross to the device in one upload, without a
+    synchronize."""
+    rows_d, fill_d = staging.upload(queue.device,
+                                    np.asarray(rows, np.int64),
+                                    np.asarray(fill, np.int64))
     keys = signed_view(queue)[rows_d, :cols].view(torch.uint32)
-    return keys, _live_mask(fill, cols, queue.device)
+    return keys, _live_mask(fill_d, cols)

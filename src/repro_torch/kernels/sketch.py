@@ -27,16 +27,16 @@ the main path went through the kernels (`kernel_launches`,
 | `queue_append`              | `queue_append_pallas` :526             |
 | `queue_append_dense`        | `queue_append_dense_pallas` :587       |
 
-Row maps of the kernels added after the first four (`fused_update_rows`,
-`window_query_stacked_rows`) are host integers, checked on the host
-(range, and uniqueness where the kernel writes) and uploaded by the
-wrapper.  The ring appends' per-row meta (rows, fill, count) are host
-integers too, checked on the host and passed to the kernel by value in
-its parameter block: an append makes no device tensor and no copy.
+Row maps of `fused_update_rows` and `window_query_stacked_rows` are host
+integers, checked on the host (range, and uniqueness where the kernel
+writes) and passed to the kernel by value in its parameter block, as the
+ring appends' per-row meta (rows, fill, count) are: these calls make no
+device tensor and no copy for their meta.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -54,7 +54,10 @@ def _seed_tensor(seeds: tuple, device) -> torch.Tensor:
     return torch.tensor(seeds, dtype=torch.int64, device=device)
 
 
+@functools.lru_cache(maxsize=None)
 def _seed_array(seeds: tuple):
+    """The row seeds as the uint32 array the C entry points read (kept:
+    read-only, made once per spec)."""
     return (ctypes.c_uint32 * len(seeds))(*seeds)
 
 
@@ -89,19 +92,34 @@ def _check_cuda(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+_GEOMETRY: dict = {}  # (shape, dtype, width, counter, cpl, dims) -> words
+
+
 def _table_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
-                    cpl: int) -> int:
-    """Validate a (T, d, sw) table stack; return 32-bit words per row."""
-    _need(tables.dim() == 3, f"tables must be (T, d, sw), got "
-                             f"{tuple(tables.shape)}")
+                    cpl: int, dims: int = 3) -> int:
+    """Validate a (T, d, sw) table stack, or with dims=4 a (R, B, d, sw)
+    ring stack; return 32-bit words per row.  The shape checks are cached
+    per geometry (a wrapper runs them on every launch)."""
+    key = (tables.shape, tables.dtype, width, counter, cpl, dims)
+    wpr = _GEOMETRY.get(key)
+    if wpr is None:
+        wpr = _GEOMETRY[key] = _check_geometry(tables, width, counter, cpl,
+                                               dims)
+    if not tables.is_contiguous():
+        raise ValueError("tables must be contiguous")
+    return wpr
+
+
+def _check_geometry(tables, width, counter, cpl, dims) -> int:
+    shape = tuple(tables.shape)
+    _need(len(shape) == dims, f"tables must be (T, d, sw), got {shape}")
     want = torch.uint32 if cpl > 1 else counter.dtype
     _need(tables.dtype == want, f"tables dtype {tables.dtype}, expected "
                                 f"{want}")
-    _need(tables.shape[2] * cpl == width,
-          f"table rows hold {tables.shape[2] * cpl} cells, width {width}")
-    _need(1 <= tables.shape[1] <= MAX_DEPTH,
-          f"depth {tables.shape[1]} outside [1, {MAX_DEPTH}]")
-    _need(tables.is_contiguous(), "tables must be contiguous")
+    _need(shape[-1] * cpl == width,
+          f"table rows hold {shape[-1] * cpl} cells, width {width}")
+    _need(1 <= shape[-2] <= MAX_DEPTH,
+          f"depth {shape[-2]} outside [1, {MAX_DEPTH}]")
     bits = counter.bits
     _need(width * bits % 32 == 0,
           f"kernel rows are read as 32-bit words: width {width} x {bits} "
@@ -109,6 +127,7 @@ def _table_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
     return width * bits // 32
 
 
+@functools.lru_cache(maxsize=None)
 def _counter_args(counter: CounterSpec):
     return (counter.bits, int(counter.kind == "log"), counter.max_state,
             counter.logb if counter.kind == "log" else 0.0,
@@ -213,40 +232,41 @@ def fused_update_score(tables: torch.Tensor, keys: torch.Tensor,
 fused_update_score.launches = 0
 
 
-def _float_ok(name: str, x: torch.Tensor, shape) -> None:
-    _need(x.dtype == torch.float32 and x.is_contiguous(),
-          f"{name} must be contiguous float32")
-    _need(tuple(x.shape) == tuple(shape),
-          f"{name} shape {tuple(x.shape)}, expected {tuple(shape)}")
+MAX_MAPPED_ROWS = 1024  # CML_ROWMAP_MAX_ROWS in csrc/common.cuh
 
 
 def _host_rows(rows, limit: int, unique: bool) -> np.ndarray:
-    rows = np.asarray(rows, np.int64).reshape(-1)
-    _need(bool(((rows >= 0) & (rows < limit)).all()),
-          f"rows outside [0, {limit})")
-    if unique:
-        _need(np.unique(rows).size == rows.size, "rows must be unique")
+    """A row map as a C-contiguous int64 host array, checked by one sort:
+    every row in [0, limit) (the sorted ends) and, where the kernel
+    writes, unique (no equal neighbours).  The C entry points pass it to
+    the kernel by value, CML_ROWMAP_MAX_ROWS rows a launch."""
+    rows = np.ascontiguousarray(rows, np.int64).reshape(-1)
+    if rows.size:
+        s = np.sort(rows)
+        if s[0] < 0 or s[-1] >= limit:
+            raise ValueError(f"rows outside [0, {limit})")
+        if unique and np.count_nonzero(s[1:] == s[:-1]):
+            raise ValueError("rows must be unique")
     return rows
 
 
-def _rows_device(rows: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(rows.astype(np.int32)).to(device)
-
-
 def _update_batch(tables, keys, mult, uniforms, n_rows, seeds):
-    _need(keys.dim() == 2 and keys.shape[0] == n_rows,
-          f"keys must be (R={n_rows}, N), got {tuple(keys.shape)}")
-    _need(tuple(mult.shape) == tuple(keys.shape)
-          and tuple(uniforms.shape) == tuple(keys.shape),
-          "mult and uniforms must match keys' (R, N)")
-    _need(len(seeds) == tables.shape[1],
-          f"{len(seeds)} seeds for depth {tables.shape[1]}")
+    # messages are formatted only on failure: this runs on every launch
+    shape = keys.shape
+    if len(shape) != 2 or shape[0] != n_rows:
+        raise ValueError(f"keys must be (R={n_rows}, N), got {tuple(shape)}")
+    if mult.shape != shape or uniforms.shape != shape:
+        raise ValueError("mult and uniforms must match keys' (R, N)")
+    if len(seeds) != tables.shape[1]:
+        raise ValueError(f"{len(seeds)} seeds for depth {tables.shape[1]}")
 
 
 def _update_cuda_ok(keys, mult, uniforms) -> None:
-    _keys_ok("keys", keys, keys.shape)
-    _float_ok("mult", mult, keys.shape)
-    _float_ok("uniforms", uniforms, keys.shape)
+    # shapes were checked by _update_batch
+    _keys_ok("keys", keys)
+    for name, x in (("mult", mult), ("uniforms", uniforms)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
 
 
 def fused_update_rows(tables: torch.Tensor, keys: torch.Tensor,
@@ -267,9 +287,8 @@ def fused_update_rows(tables: torch.Tensor, keys: torch.Tensor,
             tables, keys, mult, uniforms, torch.from_numpy(rows),
             _seed_tensor(seeds, "cpu"), counter, CHUNK, cpl)
     _update_cuda_ok(keys, mult, uniforms)
-    rows_d = _rows_device(rows, tables.device)
     rc = build.load().cml_fused_update_rows(
-        tables.data_ptr(), d, wpr, rows_d.data_ptr(), rows.shape[0],
+        tables.data_ptr(), d, wpr, rows.ctypes.data, rows.shape[0],
         keys.data_ptr(), mult.data_ptr(), uniforms.data_ptr(), keys.shape[1],
         _seed_array(seeds), width, *_counter_args(counter),
         _stream(tables.device))
@@ -318,13 +337,16 @@ _MODES = {"sum": 0, "max": 1}
 def _window_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
                      cpl: int, mode: str) -> int:
     """Validate a (R, B, d, sw) ring stack; return 32-bit words per row."""
-    _need(mode in _MODES, f"unknown window query mode {mode!r}")
-    _need(tables.dim() == 4, f"rings must be (R, B, d, sw), got "
-                             f"{tuple(tables.shape)}")
-    _need(tables.shape[1] >= 1, "need at least one bucket")
-    _need(tables.is_contiguous(), "rings must be contiguous")
-    return _table_geometry(tables.view((-1,) + tuple(tables.shape[2:])),
-                           width, counter, cpl)
+    if mode not in _MODES:
+        raise ValueError(f"unknown window query mode {mode!r}")
+    if tables.dim() != 4:
+        raise ValueError(f"rings must be (R, B, d, sw), got "
+                         f"{tuple(tables.shape)}")
+    if tables.shape[1] < 1:
+        raise ValueError("need at least one bucket")
+    if not tables.is_contiguous():
+        raise ValueError("rings must be contiguous")
+    return _table_geometry(tables, width, counter, cpl, dims=4)
 
 
 def _window_launch(wrapper, tables, keys, weights, rows, seeds, width,
@@ -336,12 +358,15 @@ def _window_launch(wrapper, tables, keys, weights, rows, seeds, width,
     wpr = _window_geometry(tables, width, counter, cpl, mode)
     _, b, d, _ = tables.shape
     n_rings = tables.shape[0] if rows is None else rows.shape[0]
-    _need(keys.dim() == 2 and keys.shape[0] == n_rings,
-          f"keys must be (R={n_rings}, N), got {tuple(keys.shape)}")
-    _need(tuple(weights.shape) == (n_rings, b),
-          f"weights must be (R={n_rings}, B={b}), got "
-          f"{tuple(weights.shape)}")
-    _need(len(seeds) == d, f"{len(seeds)} seeds for depth {d}")
+    # messages are formatted only on failure: this runs on every launch
+    if keys.dim() != 2 or keys.shape[0] != n_rings:
+        raise ValueError(f"keys must be (R={n_rings}, N), got "
+                         f"{tuple(keys.shape)}")
+    if tuple(weights.shape) != (n_rings, b):
+        raise ValueError(f"weights must be (R={n_rings}, B={b}), got "
+                         f"{tuple(weights.shape)}")
+    if len(seeds) != d:
+        raise ValueError(f"{len(seeds)} seeds for depth {d}")
     if kind == "cpu":
         rows_t = (torch.arange(n_rings) if rows is None
                   else torch.from_numpy(rows))
@@ -349,13 +374,13 @@ def _window_launch(wrapper, tables, keys, weights, rows, seeds, width,
             tables, keys, weights, rows_t, _seed_tensor(seeds, "cpu"), width,
             counter, mode, cpl)
     n = keys.shape[1]
-    _keys_ok("keys", keys, (n_rings, n))
-    _float_ok("weights", weights, (n_rings, b))
+    _keys_ok("keys", keys)
+    if weights.dtype != torch.float32 or not weights.is_contiguous():
+        raise ValueError("weights must be contiguous float32")
     out = torch.empty((n_rings, n), dtype=torch.float32, device=tables.device)
-    rows_d = None if rows is None else _rows_device(rows, tables.device)
     rc = getattr(build.load(), "cml_" + wrapper.__name__)(
         tables.data_ptr(), n_rings, b, d, wpr,
-        None if rows_d is None else rows_d.data_ptr(), keys.data_ptr(), n,
+        None if rows is None else rows.ctypes.data, keys.data_ptr(), n,
         weights.data_ptr(), out.data_ptr(), _MODES[mode], _seed_array(seeds),
         width, *_counter_args(counter), _stream(tables.device))
     _check_cuda(wrapper.__name__, rc)
@@ -400,8 +425,9 @@ def window_query_stacked_rows(tables: torch.Tensor, keys: torch.Tensor,
                               ) -> torch.Tensor:
     """Rings rows[i] (host integers) of the native (T, B, d, sw) window
     leaf, read in place: keys (R, N), weights (R, B) -> float32 (R, N)."""
-    _need(tables.dim() == 4, f"rings must be (T, B, d, sw), got "
-                             f"{tuple(tables.shape)}")
+    if tables.dim() != 4:
+        raise ValueError(f"rings must be (T, B, d, sw), got "
+                         f"{tuple(tables.shape)}")
     rows = _host_rows(rows, tables.shape[0], unique=False)
     return _window_launch(window_query_stacked_rows, tables, keys, weights,
                           rows, seeds, width, counter, mode, cpl)

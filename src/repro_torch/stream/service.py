@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import sketch as sk
+from repro_torch.core import staging
 from repro_torch.core import topk
 from repro_torch.core.counters import signed_view, to_numpy, zeros
 from repro_torch.core.sketch import Sketch, SketchSpec
@@ -99,11 +100,11 @@ class _RngLane:
 class _DeviceRing:
     """(T, capw) device ring + deterministic host fill mirror.
 
-    Appends stage their keys in buffers the ring owns and reuses: on CUDA,
-    two pinned host slots used in turn and one device buffer, so an append
-    is one asynchronous copy and one kernel launch, and the host waits
-    only when it is two appends ahead of the copies; on the CPU, the same
-    packing into plain host slots, which the append reads in place.
+    Appends stage their keys through a `HostStaging` of two slots the ring
+    owns and one device buffer it reuses: on CUDA the slots are pinned, so
+    an append is one asynchronous copy and one kernel launch, and the host
+    waits only when it is two appends ahead of the copies; on the CPU, the
+    same packing into plain host slots, which the append reads in place.
     """
 
     SLOTS = 2
@@ -115,15 +116,13 @@ class _DeviceRing:
         self.queue = ops.queue_init(0, capacity, device)
         self.fill = np.zeros((0,), np.int64)
         self._cuda = device.type == "cuda"
-        self._host = [self._host_buffer(0) for _ in range(self.SLOTS)]
-        self._copied = ([torch.cuda.Event() for _ in range(self.SLOTS)]
-                        if self._cuda else None)
+        self._staging = staging.HostStaging(device, self.SLOTS, torch.int32)
         self._dev = (torch.empty(0, dtype=torch.int32, device=device)
                      if self._cuda else None)
-        self._slot = 0
 
-    def _host_buffer(self, size: int) -> torch.Tensor:
-        return torch.empty(size, dtype=torch.int32, pin_memory=self._cuda)
+    @property
+    def _host(self) -> list:
+        return self._staging.host
 
     def _stage(self, batches: Sequence[np.ndarray]) -> torch.Tensor:
         """Pack the batches into the next slot as rows of the
@@ -133,13 +132,7 @@ class _DeviceRing:
         n = max(b.size for b in batches)
         n_pad = ops.CHUNK * -(-n // ops.CHUNK)  # CHUNK-quantized launches
         size = len(batches) * n_pad
-        slot = self._slot
-        self._slot = (slot + 1) % self.SLOTS
-        if self._cuda and not self._copied[slot].query():
-            self._copied[slot].synchronize()  # its last copy must be read
-        if self._host[slot].numel() < size:
-            self._host[slot] = self._host_buffer(size)
-        host = self._host[slot][:size]
+        host = self._staging.stage(size)
         keys = host.numpy().view(np.uint32).reshape(len(batches), n_pad)
         for i, b in enumerate(batches):
             keys[i, :b.size] = b
@@ -147,9 +140,7 @@ class _DeviceRing:
             if self._dev.numel() < size:
                 self._dev = torch.empty(size, dtype=torch.int32,
                                         device=self.device)
-            host = self._dev[:size].copy_(host, non_blocking=True)
-            self._copied[slot].record(
-                torch.cuda.current_stream(self.device))
+            host = self._staging.send(host, self._dev[:size])
         return host.view(len(batches), n_pad).view(torch.uint32)
 
     def add_row(self) -> int:
@@ -278,8 +269,9 @@ class _PlaneBase(_TrackerMixin, _TelemetryMixin):
         self.ring.append(rows, batches)
 
     def _rows_d(self, rows) -> torch.Tensor:
-        """Host row indices as an int64 tensor on the plane's device."""
-        return torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
+        """Host row indices as an int64 tensor on the plane's device,
+        uploaded without a synchronize (`core/staging.py`)."""
+        return staging.upload(self.device, np.asarray(rows, np.int64))[0]
 
 
 class TenantPlane(_PlaneBase):

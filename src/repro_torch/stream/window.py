@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import staging
 from repro_torch.core.counters import f32, signed_view
 from repro_torch.core.sketch import Sketch, SketchSpec
 from repro_torch.kernels import ops
@@ -108,7 +109,8 @@ def window_weights_stacked(cursors, buckets: int,
     """(R, B) float32 per-bucket estimate weights for R rings of one
     geometry: 0 past the last `n_buckets` intervals, else 1, or
     gamma^age with lazy decay.  Computed on the host (one evaluation for
-    every ring) and placed on `device`."""
+    every ring) and placed on `device` without a synchronize
+    (`core/staging.py`)."""
     k = buckets if n_buckets is None else n_buckets
     if not 1 <= k <= buckets:
         raise ValueError(f"window of {k} buckets outside ring of {buckets}")
@@ -121,7 +123,7 @@ def window_weights_stacked(cursors, buckets: int,
             raise ValueError("gamma must be in (0, 1]")
         live = live * torch.pow(torch.tensor(f32(gamma)),
                                 ages.to(torch.float32))
-    return live.to(device)
+    return staging.upload(device, live.numpy())[0]
 
 
 def window_weights(win: WindowedSketch, n_buckets: int | None = None,

@@ -79,6 +79,26 @@ def test_log_point_mass_and_increase_prob_within_8_ulp(name):
 
 
 @pytest.mark.parametrize("name", LOG_COUNTERS)
+def test_log_nfold_at_u_zero_near_the_top_states_equals_jax(name):
+    """A fixed grid where the log counter's nfold steps one state past the
+    bound that tests/test_counters.py::test_property_nfold_monotone_and_
+    bounded draws at random (CMLS8 nfold(246, 450, u=0) is 247, the bound
+    246): states 240-255, n in {450, 1489, 1923, 10000}, u = 0.  The port
+    lands exactly the JAX package's states there."""
+    j, t = _pair(name)
+    s = np.repeat(np.arange(240, 256), 4).astype(np.uint32)
+    n = np.tile(np.array([450, 1489, 1923, 10000], np.float32), 16)
+    u = np.zeros(s.size, np.float32)
+    want = np.asarray(j.nfold(jnp.asarray(s), jnp.asarray(n), jnp.asarray(u)))
+    got = t.nfold(torch.from_numpy(s.astype(np.int64)), torch.from_numpy(n),
+                  torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got.astype(np.uint32), want)
+    if name == "CMLS8":
+        assert int(want[0]) == 241 and int(want[np.flatnonzero(
+            (s == 246) & (n == 450))[0]]) == 247
+
+
+@pytest.mark.parametrize("name", LOG_COUNTERS)
 def test_log_nfold_differs_rarely_and_by_one_state(name):
     j, t = _pair(name)
     rng = np.random.default_rng(1)

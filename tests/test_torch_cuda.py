@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.core import counters as tc
 from repro_torch.core import sketch as tsk
 from repro_torch.core.counters import signed_view
@@ -36,8 +37,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _spec(name, packed, width=4096):
-    return tsk.SketchSpec(width=width, depth=2, counter=getattr(tc, name),
+def _spec(name, packed, width=4096, depth=2):
+    return tsk.SketchSpec(width=width, depth=depth, counter=getattr(tc, name),
                           packed=packed)
 
 
@@ -79,14 +80,101 @@ def _random_cells(rng, spec, lead, device):
     return tsk.storage_table(torch.from_numpy(states), spec).to(device)
 
 
+# edge cases of the two row-mapped kernels (fused_update_rows,
+# window_query_stacked_rows), beside the random inputs of the first port
+UPDATE_CASES = ("random", "split", "one_row", "all_distinct", "one_key",
+                "extreme_keys", "mult_zero", "high_states", "many_live",
+                "deep")
+WINDOW_CASES = ("random", "split", "one_row", "one_key", "all_distinct",
+                "extreme_keys", "passes")
+
+
+def _distinct_keys(n: int) -> np.ndarray:
+    """n distinct uint32 keys spread over the whole range (an odd
+    multiplier is a bijection mod 2^32)."""
+    return np.arange(n, dtype=np.uint32) * np.uint32(2654435761)
+
+
+def _update_rows_case(case, spec, rng, device):
+    """(tables, rows, raw keys (R, N), weights, uniforms) of one
+    row-mapped update: rows a unique map into a larger stack of random
+    cell states; "split" maps MAX_MAPPED_ROWS + 37 rows (two launches),
+    "high_states" starts every cell within 9 states of the maximum
+    (CMLS8: states 246-255) with u = 0 and n in {450, 1489, 1923, 10000},
+    where the log counter's nfold steps one state past the reference
+    property test's bound; "many_live" gives each row over 9,000 live
+    keys, more than the kernel compacts before its chunk loop (each
+    chunk's threads then take their own slots); "deep" is a depth-4
+    sketch (the kernel's instance for depths 3-8) with rows of 34
+    chunks."""
+    t, r, n = 8, 3, 2500
+    if case == "split":
+        t, r, n = ksk.MAX_MAPPED_ROWS + 40, ksk.MAX_MAPPED_ROWS + 37, 1100
+    elif case == "one_row":
+        r = 1
+    elif case == "many_live":
+        r, n = 2, 9300
+    elif case == "deep":
+        r, n = 2, 33 * ksk.CHUNK + 100
+    if case == "high_states":
+        top = spec.counter.max_state
+        states = rng.integers(top - 9, top + 1, (t, spec.depth, spec.width))
+        tables = tsk.storage_table(torch.from_numpy(states), spec).to(device)
+    else:
+        tables = _random_cells(rng, spec, (t, spec.depth), device)
+    rows = rng.permutation(t)[:r]
+    raw = rng.integers(0, 3000, (r, n)).astype(np.uint32)
+    if case in ("all_distinct", "many_live"):
+        raw = _distinct_keys(r * n).reshape(r, n)
+    elif case == "one_key":
+        raw[:] = 77
+    elif case == "extreme_keys":
+        raw = rng.choice(np.array([0, 0xFFFFFFFF, 1, 0xFFFFFFFE], np.uint32),
+                         (r, n))
+    w = np.ones((r, n), np.float32)
+    w[:, -300:] = 0  # stale ring slots ride along with weight 0
+    if case == "mult_zero":
+        w[:] = 0
+    elif case == "high_states":
+        w = rng.choice(np.array([450, 1489, 1923, 10000, 1], np.float32),
+                       (r, n))
+    unif = ops._parity_uniforms([4, 5], n, t, rows, device)
+    if case == "high_states":
+        unif = torch.zeros_like(unif)
+    return (tables, rows, tc.from_numpy(raw, device),
+            torch.from_numpy(w).to(device), unif)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", UPDATE_CASES)
 @pytest.mark.parametrize("name,packed", FORMATS)
-def test_untracked_update_kernels_equal_plain(cuda, name, packed):
+def test_untracked_update_kernels_equal_plain(cuda, name, packed, case):
     """fused_update (every table) and fused_update_rows (a row map into a
     larger stack, as the window flush's flat leaf) against their plain
-    versions: equal cell states, unlisted tables untouched."""
-    spec = _spec(name, packed)
+    versions: equal cell states, unlisted tables untouched; for
+    fused_update_rows also at the edge cases of UPDATE_CASES."""
+    spec = _spec(name, packed, depth=4 if case == "deep" else 2)
     rng = np.random.default_rng(3)
+    seed_t = ops._seed_tensor(spec, cuda)
+    kw = dict(seeds=ops._seeds_tuple(spec), width=spec.width,
+              counter=spec.counter, cpl=spec.cells_per_lane)
+    if case != "random":
+        base, rows, raw, w, unif = _update_rows_case(case, spec, rng, cuda)
+        skeys, mult = tsk.dedup_weighted(raw, w)
+        ta, tp = base.clone(), base.clone()
+        ksk.reset_kernel_launches()
+        ksk.fused_update_rows(ta, ops.as_device_keys(skeys, cuda), mult,
+                              unif, rows, **kw)
+        ref.fused_update_rows_plain(tp, skeys, mult, unif,
+                                    torch.from_numpy(rows), seed_t,
+                                    spec.counter, ksk.CHUNK,
+                                    cpl=spec.cells_per_lane)
+        torch.cuda.synchronize()
+        assert ksk.kernel_launches()["fused_update_rows"] == 1
+        assert torch.equal(signed_view(ta), signed_view(tp))
+        if case == "mult_zero":
+            assert torch.equal(signed_view(ta), signed_view(base))
+        return
     raw = tc.from_numpy(rng.integers(0, 3000, (3, 2500)).astype(np.uint32),
                         cuda)
     w = torch.ones(raw.shape, dtype=torch.float32, device=cuda)
@@ -94,9 +182,6 @@ def test_untracked_update_kernels_equal_plain(cuda, name, packed):
     skeys, mult = tsk.dedup_weighted(raw, w)
     keys = ops.as_device_keys(skeys, cuda)
     unif = ops._parity_uniforms([4, 5], raw.shape[1], 3, [0, 1, 2], cuda)
-    seed_t = ops._seed_tensor(spec, cuda)
-    kw = dict(seeds=ops._seeds_tuple(spec), width=spec.width,
-              counter=spec.counter, cpl=spec.cells_per_lane)
     base = _random_cells(rng, spec, (8, 2), cuda)
     ta, tp = base[:3].clone(), base[:3].clone()
     ksk.fused_update(ta, keys, mult, unif, **kw)
@@ -115,14 +200,68 @@ def test_untracked_update_kernels_equal_plain(cuda, name, packed):
                        signed_view(base)[untouched])
 
 
+def _window_rows_case(case, rng, t):
+    """(rows, keys (R, N) numpy) of one row-mapped window read of a
+    t-ring leaf: "split" reads MAX_MAPPED_ROWS + 37 rings (repeats
+    allowed: a read), "all_distinct" a ring's 16,448 candidates all
+    distinct, "passes" 300,000 distinct candidates a ring (every 97th the
+    key 0xFFFFFFFF) on the 8 x 2 instance, over 1,000 blocks a ring."""
+    rows, n = [4, 0, 2], 777
+    if case == "split":
+        rows, n = rng.integers(0, t, ksk.MAX_MAPPED_ROWS + 37), 64
+    elif case == "one_row":
+        rows = [3]
+    elif case == "all_distinct":
+        n = 16_448
+    elif case == "passes":
+        rows, n = [1, 3], 300_000
+    r = len(rows)
+    keys = rng.integers(0, 3000, (r, n)).astype(np.uint32)
+    if case in ("all_distinct", "passes"):
+        keys = _distinct_keys(r * n).reshape(r, n)
+        if case == "passes":
+            keys[:, ::97] = 0xFFFFFFFF
+    elif case == "one_key":
+        keys[:] = 12345
+    elif case == "extreme_keys":
+        keys = rng.choice(np.array([0, 0xFFFFFFFF, 1, 0xFFFFFFFE],
+                                   np.uint32), (r, n))
+    return np.asarray(rows), keys
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES)
 @pytest.mark.parametrize("name,packed", FORMATS)
 @pytest.mark.parametrize("mode", ["sum", "max"])
-def test_window_query_kernels_equal_plain(cuda, name, packed, mode):
+def test_window_query_kernels_equal_plain(cuda, name, packed, mode, case):
     """The three window queries against their plain versions, bit for
-    bit, with random weights (gamma-like) and random cell states."""
+    bit, with random weights (gamma-like) and random cell states; the
+    row-mapped one also at the edge cases of WINDOW_CASES, on an 8-bucket
+    leaf (the kernel's instance for the windowed path's 8 x 2 geometry;
+    the random case's 4 buckets take its general instance)."""
     spec = _spec(name, packed)
     rng = np.random.default_rng(4)
+    if case != "random":
+        t, b = 5, 8
+        leaf = _random_cells(rng, spec, (t, b, 2), cuda)
+        rows, keys = _window_rows_case(case, rng, t)
+        wts = torch.from_numpy(rng.random((len(rows), b)).astype(
+            np.float32)).to(cuda)
+        wts[0, 5] = 0.0  # an expired bucket
+        keys = tc.from_numpy(keys, cuda)
+        ksk.reset_kernel_launches()
+        got = ksk.window_query_stacked_rows(
+            leaf, keys, wts, rows, seeds=ops._seeds_tuple(spec),
+            width=spec.width, counter=spec.counter, mode=mode,
+            cpl=spec.cells_per_lane)
+        want = ref.window_query_stacked_rows_plain(
+            leaf, keys, wts, torch.from_numpy(rows),
+            ops._seed_tensor(spec, cuda), spec.width, spec.counter, mode,
+            spec.cells_per_lane)
+        torch.cuda.synchronize()
+        assert ksk.kernel_launches()["window_query_stacked_rows"] == 1
+        assert torch.equal(got, want)
+        return
     t, b = 5, 4
     leaf = _random_cells(rng, spec, (t, b, 2), cuda)
     keys = tc.from_numpy(rng.integers(0, 2**32, (3, 777), dtype=np.uint64)
@@ -253,6 +392,65 @@ def test_enqueue_many_does_not_synchronize(cuda):
     for ra, rp in zip(*out):
         assert np.array_equal(ra.fill, rp.fill)
         assert torch.equal(signed_view(ra.queue), signed_view(rp.queue))
+
+
+@pytest.mark.cuda
+def test_flush_does_not_synchronize(cuda):
+    """The flush path issues no synchronizing CUDA call: a tracked flush,
+    window flushes of one and of two fill classes, and a windowed
+    `enqueue_many(..., ts=)` that flushes and rotates run under
+    torch.cuda.set_sync_debug_mode("error").  Tables, leaves, cursors,
+    watermarks, rings, fills and trackers then equal the plain engine's
+    on the same stream."""
+    spec = _spec("CMLS16", False)
+    wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+    names, wnames = [f"t{i}" for i in range(4)], ["x", "y", "z"]
+    rng = np.random.default_rng(7)
+
+    def zipf(n):
+        return rng.zipf(1.3, n).astype(np.uint32) % 5000
+    flat_ev = {n: zipf(900) for n in names}
+    win_evs = [({n: zipf(700) for n in wnames}, 600.0),        # one class
+               ({"x": zipf(300), "y": zipf(1500)}, 610.0),      # two
+               ({"z": zipf(500)}, 620.0),                       # pending,
+               ({"x": zipf(400), "z": zipf(200)}, 745.0)]       # then rotate
+    first = {n: zipf(10) for n in wnames}  # sets the watermarks
+    out = []
+    for engine in ("auto", "plain"):
+        flat = CountService(spec, tenants=names, queue_capacity=4096,
+                            track_top=8, device=cuda, engine=engine)
+        win = CountService(queue_capacity=4096, track_top=8, device=cuda,
+                           engine=engine)
+        for n in wnames:
+            win.add_tenant(n, window=wspec)
+        win.enqueue_many(first, ts=590.0)
+        torch.cuda.synchronize()
+        before = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            flat.enqueue_many(flat_ev)
+            flat.flush()
+            for i, (ev, ts) in enumerate(win_evs):
+                win.enqueue_many(ev, ts=ts)
+                if i < 2:
+                    win.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
+        assert win.planes[0].cursors.tolist() == [3, 1, 3]
+        out.append((flat, win))
+    for a, b in zip(*out):
+        _, ta = convert.service_to_numpy(a)
+        _, tb = convert.service_to_numpy(b)
+        for kind in ("planes", "windows"):
+            for la, lb in zip(ta[kind], tb[kind]):
+                for key, va in la.items():
+                    if isinstance(va, dict):
+                        for sub, x in va.items():
+                            assert np.array_equal(x, lb[key][sub]), (key, sub)
+                    else:
+                        assert np.array_equal(va, lb[key]), key
 
 
 @pytest.mark.cuda

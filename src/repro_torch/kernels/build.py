@@ -36,19 +36,22 @@ SIGNATURES = {
     # log, max_state, logb, bm1, stream
     "cml_fused_query": [_P, _I, _I, _I, _P, _I, _P, _P, _U, _I, _I, _U, _F,
                         _F, _P],
-    # tables, depth, words_per_row, rows, r, keys, mult, unif, n, cand, est,
-    # m, seeds, width, bits, log, max_state, logb, bm1, stream
-    "cml_fused_update_score": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P,
-                               _I, _P, _U, _I, _I, _U, _F, _F, _P],
+    # tables, depth, words_per_row, rows, urows, r, keys, mult, n, k1, k2,
+    # cand, est, m, seeds, width, bits, log, max_state, logb, bm1, stream;
+    # rows / urows: host int64 (r,) table rows and uniform-grid rows, passed
+    # on to the kernels by value; (k1, k2): the flush's threefry key
+    "cml_fused_update_score": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _U, _U,
+                               _P, _P, _I, _P, _U, _I, _I, _U, _F, _F, _P],
     # tables, depth, words_per_row, rows, r, keys, mult, unif, n, seeds,
     # width, bits, log, max_state, logb, bm1, stream; rows: host int64 (r,),
     # passed on to the kernel by value
     "cml_fused_update_rows": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _U,
                               _I, _I, _U, _F, _F, _P],
-    # tables, depth, words_per_row, t, keys, mult, unif, n, seeds, width,
-    # bits, log, max_state, logb, bm1, stream
-    "cml_fused_update": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _U, _I, _I, _U,
-                         _F, _F, _P],
+    # tables, depth, words_per_row, rows, urows, t, keys, mult, n, k1, k2,
+    # seeds, width, bits, log, max_state, logb, bm1, stream; rows: host
+    # int64 0 .. t-1, urows as above
+    "cml_fused_update": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _U, _U, _P, _U,
+                         _I, _I, _U, _F, _F, _P],
     # the three window queries: tables, r, buckets, depth, words_per_row,
     # rows, keys, n, weights, out, mode_max, seeds, width, bits, log,
     # max_state, logb, bm1, stream; rows: NULL for the first two, host

@@ -23,9 +23,10 @@
 // rows of (row, fill, count) int32 are 12 KB of the 32,764-byte kernel
 // parameter block that sm_90 takes under CUDA 12.1 and later.
 #define CML_APPEND_MAX_ROWS 1024
-// Rows one row-mapped update (fused_update_rows.cu) or ring read
-// (window_query.cu, cml_window_query_stacked_rows) launch carries by value:
-// 1,024 int32 row indices, 4 KB of the parameter block.
+// Rows one row-mapped update (fused_update_rows.cu, and with their
+// uniform-grid rows fused_update_score.cu) or ring read (window_query.cu,
+// cml_window_query_stacked_rows) launch carries by value: 1,024 int32 row
+// indices, 4 KB of the parameter block (8 KB with the grid rows).
 #define CML_ROWMAP_MAX_ROWS 1024
 
 struct RowSeeds {
@@ -119,6 +120,38 @@ __device__ __forceinline__ uint32_t cml_nfold(uint32_t state, float n,
   float nw = (n > 0.0f) ? c2 + inc : s;
   nw = fminf(fmaxf(nw, 0.0f), (float)c.max_state);
   return (uint32_t)nw;
+}
+
+// threefry2x32, 20 rounds, of the counter (x1, x2) under the key (k1, k2),
+// in place: core/prng.py `threefry2x32`, JAX's threefry_2x32 (rotations
+// (13, 15, 26, 6) and (17, 29, 16, 24), parity 0x1BD11BDA).
+__device__ __forceinline__ void cml_threefry2x32(uint32_t k1, uint32_t k2,
+                                                 uint32_t& x1, uint32_t& x2) {
+  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
+  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x1 += ks[0];
+  x2 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x1 += x2;
+      x2 = __funnelshift_l(x2, x2, rot[i % 2][j]) ^ x1;
+    }
+    x1 += ks[(i + 1) % 3];
+    x2 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+}
+
+// Element `idx` (a flat row-major index) of `jax.random.uniform` on the raw
+// key (k1, k2) under the partitionable threefry scheme (core/prng.py):
+// counter (idx >> 32, idx & 0xFFFFFFFF), bits b1 ^ b2, then the float
+// step (bits >> 9) | 0x3F800000 as float32, minus 1.
+__device__ __forceinline__ float cml_uniform(uint32_t k1, uint32_t k2,
+                                             uint64_t idx) {
+  uint32_t x1 = (uint32_t)(idx >> 32), x2 = (uint32_t)idx;
+  cml_threefry2x32(k1, k2, x1, x2);
+  return __uint_as_float(((x1 ^ x2) >> 9) | 0x3F800000u) - 1.0f;
 }
 
 // Host side: opt `kern` in to `bytes` of dynamic shared memory on the

@@ -4,9 +4,9 @@ Counterpart of `repro/kernels/ops.py`: reads (`query`, `query_many`,
 `window_query_tables`, `window_query_stacked`), updates (`update`,
 `update_xla`, the untracked flush's `update_many` / `update_rows`, and
 the tracked flush epoch `update_score_rows`: weighted dedup, parity
-uniforms, fused update + candidate score), the window leaf's rotation
-(`window_advance_rows`), and the device-resident ingest ring
-(`ring_width`, `queue_init`, `queue_append`, `flush_inputs`,
+uniforms drawn in the kernel, fused update + candidate score), the
+window leaf's rotation (`window_advance_rows`), and the device-resident
+ingest ring (`ring_width`, `queue_init`, `queue_append`, `flush_inputs`,
 `flush_rows_inputs`).
 
 engine: "auto" hands the tensors to the kernel wrappers in
@@ -287,13 +287,14 @@ def update_xla(sketch: sk.Sketch, keys, rng) -> sk.Sketch:
 def _update_chunked(tables, spec, keys, weights, rng, grid, engine,
                     rows=None):
     """Dedup + parity uniforms + the update kernel, in place: the dense
-    kernel (batch row i -> table i), or with `rows` the row-mapped one."""
+    kernel (batch row i -> table i), which draws its uniforms itself, or
+    with `rows` the row-mapped one, which takes them drawn."""
     total, urows = grid
     dev = tables.device
     sorted_keys, mult = sk.dedup_weighted(keys, weights)
-    uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
     kw = dict(counter=spec.counter, cpl=spec.cells_per_lane)
     if engine == "plain":
+        uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
         seed_t = _seed_tensor(spec, dev)
         if rows is None:
             return ref.fused_update_plain(tables, sorted_keys, mult,
@@ -304,7 +305,8 @@ def _update_chunked(tables, spec, keys, weights, rng, grid, engine,
     keys_u = from_i64(sorted_keys, torch.uint32)
     kw.update(seeds=_seeds_tuple(spec), width=spec.width)
     if rows is None:
-        return ksk.fused_update(tables, keys_u, mult, uniforms, **kw)
+        return ksk.fused_update(tables, keys_u, mult, rng, grid=grid, **kw)
+    uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
     return ksk.fused_update_rows(tables, keys_u, mult, uniforms, rows, **kw)
 
 
@@ -419,28 +421,29 @@ def update_score_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
     exactly as a whole-plane flush would), lands the chunk-sequential
     conservative update and scores the candidates against the updated
     rows.  uniform_rows: optional (total, urows) drawing the uniforms
-    over a (total, N) grid at `urows` instead.  Returns (tables, float32
-    (R, M)).
+    over a (total, N) grid at `urows` instead.  With the kernel the draw
+    is made inside it, for the live slots only; the plain engine draws
+    the (R, N) uniforms with `prng.uniform_rows`.  Returns (tables,
+    float32 (R, M)).
     """
     _check_engine(engine)
     rows = np.asarray(rows, np.int32).reshape(-1)
-    total, urows = _uniform_grid(tables, rows, uniform_rows)
+    grid = _uniform_grid(tables, rows, uniform_rows)
     dev = tables.device
     keys = as_device_keys(keys, dev)
     weights = _weights(keys, weights)
     _launch("update_score_rows")
     sorted_keys, mult = sk.dedup_weighted(keys, weights)
-    uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
     cand = as_device_keys(cand, dev)
-    rows_d = staging.upload(dev, rows)[0]
     if engine == "plain":
+        uniforms = _parity_uniforms(rng, keys.shape[1], *grid, dev)
         return ref.update_score_rows_ref(
-            tables, sorted_keys, mult, uniforms, rows_d, cand,
-            _seed_tensor(spec, dev), spec.counter, CHUNK,
+            tables, sorted_keys, mult, uniforms, staging.upload(dev, rows)[0],
+            cand, _seed_tensor(spec, dev), spec.counter, CHUNK,
             cpl=spec.cells_per_lane)
     return ksk.fused_update_score(
-        tables, from_i64(sorted_keys, torch.uint32), mult, uniforms, cand,
-        rows_d, seeds=_seeds_tuple(spec), width=spec.width,
+        tables, from_i64(sorted_keys, torch.uint32), mult, rng, cand, rows,
+        grid=grid, seeds=_seeds_tuple(spec), width=spec.width,
         counter=spec.counter, cpl=spec.cells_per_lane)
 
 

@@ -13,7 +13,9 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 Each wrapper carries a plain integer `launches` attribute, bumped once
 where it launches its kernel and nowhere else, so a run can show that
 the main path went through the kernels (`kernel_launches`,
-`reset_kernel_launches`).
+`reset_kernel_launches`).  It counts wrapper calls: one call of
+`fused_update_score` launches two CUDA kernels (the update, then the
+candidate scores), and a call past a launch's row cap splits over more.
 
 | wrapper                     | replaces (src/repro/kernels/sketch.py) |
 |-----------------------------|-----------------------------------------|
@@ -27,11 +29,15 @@ the main path went through the kernels (`kernel_launches`,
 | `queue_append`              | `queue_append_pallas` :526             |
 | `queue_append_dense`        | `queue_append_dense_pallas` :587       |
 
-Row maps of `fused_update_rows` and `window_query_stacked_rows` are host
-integers, checked on the host (range, and uniqueness where the kernel
-writes) and passed to the kernel by value in its parameter block, as the
-ring appends' per-row meta (rows, fill, count) are: these calls make no
-device tensor and no copy for their meta.
+Row maps of the four row-mapped wrappers (`fused_update_score`,
+`fused_update_rows`, `window_query_stacked_rows`, and `fused_update`'s
+identity map) are host integers, checked on the host (range, and
+uniqueness where the kernel writes) and passed to the kernel by value in
+its parameter block, as the ring appends' per-row meta (rows, fill,
+count) are: these calls make no device tensor and no copy for their
+meta.  `fused_update_score` and `fused_update` take the flush's raw
+threefry key and the rows of its uniform grid the same way, and draw
+their stochastic-rounding uniforms inside the kernel.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.counters import CounterSpec
 from repro_torch.kernels import build, ref
 
@@ -179,58 +186,8 @@ fused_query.launches = 0
 
 
 # --------------------------------------------------------------------------
-# fused update + score (the flush epoch)
+# updates (the flush epoch)
 # --------------------------------------------------------------------------
-
-def fused_update_score(tables: torch.Tensor, keys: torch.Tensor,
-                       mult: torch.Tensor, uniforms: torch.Tensor,
-                       cand: torch.Tensor, rows: torch.Tensor, *,
-                       seeds: tuple, width: int, counter: CounterSpec,
-                       cpl: int = 1):
-    """Single-launch flush epoch, IN PLACE on `tables`.
-
-    tables (T, d, sw); keys/mult/uniforms (R, N) pre-deduplicated
-    batches (mult == 0 entries are no-ops); cand (R, M) candidate keys;
-    rows (R,) int32 target rows, unique.  Each row's update runs
-    CHUNK-sequentially, then its candidates are scored against the
-    updated row.  Returns (tables, float32 (R, M) estimates).
-    """
-    kind = _device_kind(tables, keys, mult, uniforms, cand, rows)
-    wpr = _table_geometry(tables, width, counter, cpl)
-    t, d, _ = tables.shape
-    _need(keys.dim() == 2, f"keys must be (R, N), got {tuple(keys.shape)}")
-    r, n = keys.shape
-    _need(tuple(mult.shape) == (r, n) and tuple(uniforms.shape) == (r, n),
-          "mult and uniforms must match keys' (R, N)")
-    _need(cand.dim() == 2 and cand.shape[0] == r,
-          f"cand must be (R={r}, M), got {tuple(cand.shape)}")
-    _need(tuple(rows.shape) == (r,), f"rows must be (R={r},)")
-    _need(len(seeds) == d, f"{len(seeds)} seeds for depth {d}")
-    if kind == "cpu":
-        return ref.update_score_rows_ref(
-            tables, keys, mult, uniforms, rows, cand,
-            _seed_tensor(seeds, "cpu"), counter, CHUNK, cpl=cpl)
-    m = cand.shape[1]
-    _keys_ok("keys", keys, (r, n))
-    _keys_ok("cand", cand, (r, m))
-    for name, x in (("mult", mult), ("uniforms", uniforms)):
-        _need(x.dtype == torch.float32 and x.is_contiguous(),
-              f"{name} must be contiguous float32")
-    _need(rows.dtype == torch.int32 and rows.is_contiguous(),
-          "rows must be contiguous int32")
-    est = torch.empty((r, m), dtype=torch.float32, device=tables.device)
-    rc = build.load().cml_fused_update_score(
-        tables.data_ptr(), d, wpr, rows.data_ptr(), r, keys.data_ptr(),
-        mult.data_ptr(), uniforms.data_ptr(), n, cand.data_ptr(),
-        est.data_ptr(), m, _seed_array(seeds), width,
-        *_counter_args(counter), _stream(tables.device))
-    _check_cuda("fused_update_score", rc)
-    fused_update_score.launches += 1
-    return tables, est
-
-
-fused_update_score.launches = 0
-
 
 MAX_MAPPED_ROWS = 1024  # CML_ROWMAP_MAX_ROWS in csrc/common.cuh
 
@@ -250,21 +207,23 @@ def _host_rows(rows, limit: int, unique: bool) -> np.ndarray:
     return rows
 
 
-def _update_batch(tables, keys, mult, uniforms, n_rows, seeds):
+def _update_batch(tables, keys, n_rows, seeds, **per_key):
+    """Check an update's (R, N) keys and the float32 inputs `per_key`
+    (mult, and uniforms where the caller passes them) of keys' shape."""
     # messages are formatted only on failure: this runs on every launch
     shape = keys.shape
     if len(shape) != 2 or shape[0] != n_rows:
         raise ValueError(f"keys must be (R={n_rows}, N), got {tuple(shape)}")
-    if mult.shape != shape or uniforms.shape != shape:
-        raise ValueError("mult and uniforms must match keys' (R, N)")
+    if any(x.shape != shape for x in per_key.values()):
+        raise ValueError(f"{' and '.join(per_key)} must match keys' (R, N)")
     if len(seeds) != tables.shape[1]:
         raise ValueError(f"{len(seeds)} seeds for depth {tables.shape[1]}")
 
 
-def _update_cuda_ok(keys, mult, uniforms) -> None:
+def _update_cuda_ok(keys, **floats) -> None:
     # shapes were checked by _update_batch
     _keys_ok("keys", keys)
-    for name, x in (("mult", mult), ("uniforms", uniforms)):
+    for name, x in floats.items():
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
 
@@ -280,13 +239,14 @@ def fused_update_rows(tables: torch.Tensor, keys: torch.Tensor,
     kind = _device_kind(tables, keys, mult, uniforms)
     wpr = _table_geometry(tables, width, counter, cpl)
     rows = _host_rows(rows, tables.shape[0], unique=True)
-    _update_batch(tables, keys, mult, uniforms, rows.shape[0], seeds)
+    _update_batch(tables, keys, rows.shape[0], seeds, mult=mult,
+                  uniforms=uniforms)
     d = tables.shape[1]
     if kind == "cpu":
         return ref.fused_update_rows_plain(
             tables, keys, mult, uniforms, torch.from_numpy(rows),
             _seed_tensor(seeds, "cpu"), counter, CHUNK, cpl)
-    _update_cuda_ok(keys, mult, uniforms)
+    _update_cuda_ok(keys, mult=mult, uniforms=uniforms)
     rc = build.load().cml_fused_update_rows(
         tables.data_ptr(), d, wpr, rows.ctypes.data, rows.shape[0],
         keys.data_ptr(), mult.data_ptr(), uniforms.data_ptr(), keys.shape[1],
@@ -300,25 +260,115 @@ def fused_update_rows(tables: torch.Tensor, keys: torch.Tensor,
 fused_update_rows.launches = 0
 
 
-def fused_update(tables: torch.Tensor, keys: torch.Tensor,
-                 mult: torch.Tensor, uniforms: torch.Tensor, *,
-                 seeds: tuple, width: int, counter: CounterSpec,
-                 cpl: int = 1) -> torch.Tensor:
-    """Dense multi-tenant update, IN PLACE: batch row i lands in table i,
-    CHUNK-sequentially.  tables (T, d, sw); keys/mult/uniforms (T, N)."""
-    kind = _device_kind(tables, keys, mult, uniforms)
+def _flush_key(rng) -> tuple[int, int]:
+    """The flush's raw threefry key as two uint32 integers."""
+    k = np.asarray(rng, dtype=np.uint32).reshape(2)
+    return int(k[0]), int(k[1])
+
+
+def _draw_grid(grid, rows: np.ndarray, n_tables: int):
+    """(total, urows) of a drawn update: batch row i takes row urows[i] of
+    the flush's (total, N) uniform grid; by default the dense grid over
+    the tables at `rows`.  urows as a C-contiguous int64 host array, one
+    per row, in [0, total) (total < 2^31: the kernels carry int32 rows)."""
+    if grid is None:
+        return n_tables, rows
+    total, urows = int(grid[0]), np.ascontiguousarray(grid[1], np.int64)
+    urows = urows.reshape(-1)
+    if urows.shape != rows.shape:
+        raise ValueError(f"grid rows {urows.shape}, expected one per batch "
+                         f"row {rows.shape}")
+    if not 0 < total < 2**31:
+        raise ValueError(f"grid total {total} outside [1, 2^31)")
+    if urows.size and (urows.min() < 0 or urows.max() >= total):
+        raise ValueError(f"grid rows must lie in [0, {total})")
+    return total, urows
+
+
+def fused_update_score(tables: torch.Tensor, keys: torch.Tensor,
+                       mult: torch.Tensor, rng, cand: torch.Tensor, rows, *,
+                       grid=None, seeds: tuple, width: int,
+                       counter: CounterSpec, cpl: int = 1):
+    """The tracked flush epoch, IN PLACE on `tables`.
+
+    tables (T, d, sw); keys/mult (R, N) pre-deduplicated batches (mult ==
+    0 entries are no-ops); rng the flush's raw threefry key; cand (R, M)
+    candidate keys; rows (R,) host integers, the target tables, unique.
+    Batch row i lands CHUNK-sequentially in table rows[i] with the
+    uniforms of row urows[i] of the flush's (total, N) draw, `grid` =
+    (total, urows), by default (T, rows); then its candidates are scored
+    against the updated table.  On CUDA the kernel draws the uniforms
+    itself (no uniform tensor is made); on the CPU they come from
+    `prng.uniform_rows`.  Returns (tables, float32 (R, M) estimates).
+    """
+    kind = _device_kind(tables, keys, mult, cand)
     wpr = _table_geometry(tables, width, counter, cpl)
-    t, d, _ = tables.shape
-    _update_batch(tables, keys, mult, uniforms, t, seeds)
+    rows = _host_rows(rows, tables.shape[0], unique=True)
+    r = rows.shape[0]
+    _update_batch(tables, keys, r, seeds, mult=mult)
+    _need(cand.dim() == 2 and cand.shape[0] == r,
+          f"cand must be (R={r}, M), got {tuple(cand.shape)}")
+    total, urows = _draw_grid(grid, rows, tables.shape[0])
+    key = _flush_key(rng)
+    n = keys.shape[1]
     if kind == "cpu":
+        uniforms = prng.uniform_rows(key, total, n, urows)
+        return ref.update_score_rows_ref(
+            tables, keys, mult, uniforms, torch.from_numpy(rows), cand,
+            _seed_tensor(seeds, "cpu"), counter, CHUNK, cpl=cpl)
+    m = cand.shape[1]
+    _update_cuda_ok(keys, mult=mult)
+    _keys_ok("cand", cand)
+    est = torch.empty((r, m), dtype=torch.float32, device=tables.device)
+    rc = build.load().cml_fused_update_score(
+        tables.data_ptr(), tables.shape[1], wpr, rows.ctypes.data,
+        urows.ctypes.data, r, keys.data_ptr(), mult.data_ptr(), n, *key,
+        cand.data_ptr(), est.data_ptr(), m, _seed_array(seeds), width,
+        *_counter_args(counter), _stream(tables.device))
+    _check_cuda("fused_update_score", rc)
+    fused_update_score.launches += 1
+    return tables, est
+
+
+fused_update_score.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_rows(t: int) -> np.ndarray:
+    rows = np.arange(t, dtype=np.int64)
+    rows.flags.writeable = False
+    return rows
+
+
+def fused_update(tables: torch.Tensor, keys: torch.Tensor,
+                 mult: torch.Tensor, rng, *, grid=None, seeds: tuple,
+                 width: int, counter: CounterSpec, cpl: int = 1
+                 ) -> torch.Tensor:
+    """Dense multi-tenant update, IN PLACE: batch row i lands in table i,
+    CHUNK-sequentially, with the uniforms of row urows[i] of the flush's
+    (total, N) draw under the raw key `rng` (`grid` = (total, urows), by
+    default (T, 0..T-1)).  tables (T, d, sw); keys/mult (T, N).  On CUDA
+    the kernel draws the uniforms itself; on the CPU they come from
+    `prng.uniform_rows`."""
+    kind = _device_kind(tables, keys, mult)
+    wpr = _table_geometry(tables, width, counter, cpl)
+    t = tables.shape[0]
+    _update_batch(tables, keys, t, seeds, mult=mult)
+    rows = _identity_rows(t)
+    total, urows = _draw_grid(grid, rows, t)
+    key = _flush_key(rng)
+    n = keys.shape[1]
+    if kind == "cpu":
+        uniforms = prng.uniform_rows(key, total, n, urows)
         return ref.fused_update_plain(tables, keys, mult, uniforms,
                                       _seed_tensor(seeds, "cpu"), counter,
                                       CHUNK, cpl)
-    _update_cuda_ok(keys, mult, uniforms)
+    _update_cuda_ok(keys, mult=mult)
     rc = build.load().cml_fused_update(
-        tables.data_ptr(), d, wpr, t, keys.data_ptr(), mult.data_ptr(),
-        uniforms.data_ptr(), keys.shape[1], _seed_array(seeds), width,
-        *_counter_args(counter), _stream(tables.device))
+        tables.data_ptr(), tables.shape[1], wpr, rows.ctypes.data,
+        urows.ctypes.data, t, keys.data_ptr(), mult.data_ptr(), n, *key,
+        _seed_array(seeds), width, *_counter_args(counter),
+        _stream(tables.device))
     _check_cuda("fused_update", rc)
     fused_update.launches += 1
     return tables

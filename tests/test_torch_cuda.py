@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import counters as tc
+from repro_torch.core import prng
 from repro_torch.core import sketch as tsk
 from repro_torch.core.counters import signed_view
 from repro_torch.kernels import ops, ref
@@ -42,32 +43,99 @@ def _spec(name, packed, width=4096, depth=2):
                           packed=packed)
 
 
+# edge cases of the two updates that draw their uniforms in the kernel
+# (fused_update_score, fused_update)
+DRAW_CASES = ("random", "all_distinct", "one_key", "empty_lead", "short",
+              "ragged", "one_row", "deep", "ragged_cand", "hi_word")
+
+
+def _drawn_case(case, rng, device):
+    """(depth, table count, rows, raw keys (R, N), weights, cand (R, M),
+    grid) of one drawn update.  "all_distinct": 2 rows of 65,536 distinct
+    keys, 64 chunks past the kernel's compaction plan; "one_key": every
+    event one key; "empty_lead": the first 5 chunks of each sorted row
+    dead (a hot key of weight 0); "short": N < CHUNK; "ragged": N not a
+    multiple of CHUNK; "deep": depth 4 (the kernel's instance for depths
+    3-8); "ragged_cand": M not a multiple of the score tile; "hi_word": a
+    decoupled (70,000, N) grid at rows >= 65,537 with N = 65,536, whose
+    flat draw index needs the counter's high word."""
+    t, r, n, m, depth, grid = 4, 3, 3000, 500, 2, None
+    if case == "all_distinct":
+        r, n = 2, 64 * ksk.CHUNK
+    elif case == "one_row":
+        r = 1
+    elif case == "short":
+        n = 700
+    elif case == "ragged":
+        n = 3 * ksk.CHUNK + 333
+    elif case == "deep":
+        depth, n = 4, 5000
+    elif case == "ragged_cand":
+        m = 2 * 1024 + 77
+    elif case == "empty_lead":
+        n = 8 * ksk.CHUNK
+    elif case == "hi_word":
+        n, grid = 64 * ksk.CHUNK, (70_000, np.asarray([65_537, 69_999, 3]))
+    rows = rng.permutation(t)[:r]
+    raw = (rng.zipf(1.3, (r, n)) % 20_000).astype(np.uint32)
+    w = np.ones((r, n), np.float32)
+    w[:, -200:] = 0  # stale ring slots ride along with weight 0
+    if case == "all_distinct":
+        raw = _distinct_keys(r * n).reshape(r, n)
+    elif case == "one_key":
+        raw[:] = 77
+    elif case == "empty_lead":
+        raw[:, :5 * ksk.CHUNK + 100] = 1  # key 1 sorts first
+        w[:, :5 * ksk.CHUNK + 100] = 0
+    cand = np.concatenate([raw[:, :m - 8], np.asarray(
+        [[0, 0xFFFFFFFF, 1, 77, 5, 6, 7, 8]] * r, np.uint32)], axis=1)
+    return depth, t, rows, raw, w, cand, grid
+
+
+def _drawn_plain_uniforms(key, grid, n_tables, rows, n, device):
+    total, urows = (n_tables, rows) if grid is None else grid
+    return prng.uniform_rows(key, total, n, urows, device=device)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", DRAW_CASES)
 @pytest.mark.parametrize("name,packed", FORMATS)
-def test_update_score_and_query_kernels_equal_plain(cuda, name, packed):
-    spec = _spec(name, packed)
+def test_update_score_and_query_kernels_equal_plain(cuda, name, packed,
+                                                    case):
+    """fused_update_score, uniforms drawn in the kernel, against its plain
+    version fed `prng.uniform_rows` of the same key and grid: equal cell
+    states and estimates (which proves the draw bit for bit), unlisted
+    tables untouched, at the edge cases of DRAW_CASES; then the fused
+    query on the updated tables."""
     rng = np.random.default_rng(0)
-    raw = tc.from_numpy(rng.integers(0, 3000, (3, 3000)).astype(np.uint32),
-                        cuda)
-    w = torch.ones(raw.shape, dtype=torch.float32, device=cuda)
-    skeys, mult = tsk.dedup_weighted(raw, w)
-    unif = ops._parity_uniforms([1, 2], raw.shape[1], 4, [3, 0, 1], cuda)
-    rows = torch.tensor([3, 0, 1], dtype=torch.int32, device=cuda)
-    cand = raw[:, :500].contiguous()
-    tk = tc.zeros((4, 2, spec.storage_width), spec.storage_dtype, cuda)
-    tp = tk.clone()
-    seeds = ops._seeds_tuple(spec)
+    depth, t, rows, raw, w, cand, grid = _drawn_case(case, rng, cuda)
+    spec = _spec(name, packed, depth=depth)
+    skeys, mult = tsk.dedup_weighted(tc.from_numpy(raw, cuda),
+                                     torch.from_numpy(w).to(cuda))
+    key = np.asarray([1, 2], np.uint32)
+    cand = tc.from_numpy(cand, cuda)
+    base = _random_cells(rng, spec, (t, depth), cuda)
+    tk, tp = base.clone(), base.clone()
+    ksk.reset_kernel_launches()
     _, ek = ksk.fused_update_score(tk, ops.as_device_keys(skeys, cuda), mult,
-                                   unif, cand, rows, seeds=seeds,
+                                   key, cand, rows, grid=grid,
+                                   seeds=ops._seeds_tuple(spec),
                                    width=spec.width, counter=spec.counter,
                                    cpl=spec.cells_per_lane)
-    _, ep = ref.update_score_rows_ref(tp, skeys, mult, unif, rows, cand,
+    unif = _drawn_plain_uniforms(key, grid, t, rows, raw.shape[1], cuda)
+    _, ep = ref.update_score_rows_ref(tp, skeys, mult, unif,
+                                      torch.from_numpy(rows).to(cuda), cand,
                                       ops._seed_tensor(spec, cuda),
                                       spec.counter, ksk.CHUNK,
                                       cpl=spec.cells_per_lane)
+    torch.cuda.synchronize()
+    assert ksk.kernel_launches()["fused_update_score"] == 1
     assert torch.equal(signed_view(tk), signed_view(tp))
     assert torch.equal(ek, ep)
-    probes = raw[0, :700]  # one probe row, broadcast to all 4 tables
+    untouched = [i for i in range(t) if i not in rows]
+    assert torch.equal(signed_view(tk)[untouched],
+                       signed_view(base)[untouched])
+    probes = tc.from_numpy(raw[0, :700].copy(), cuda)  # broadcast to all
     qk = ops.query_many(tk, spec, probes, engine="auto")
     qp = ops.query_many(tk, spec, probes, engine="plain")
     assert torch.equal(qk, qp)
@@ -145,19 +213,47 @@ def _update_rows_case(case, spec, rng, device):
             torch.from_numpy(w).to(device), unif)
 
 
+# fused_update (the dense update, uniforms drawn in the kernel) at the
+# edge cases of the drawn updates (its rows are every table, so
+# "ragged_cand" has nothing to add)
+DENSE_CASES = tuple("dense_" + c for c in DRAW_CASES if c != "ragged_cand")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", UPDATE_CASES)
+@pytest.mark.parametrize("case", UPDATE_CASES + DENSE_CASES)
 @pytest.mark.parametrize("name,packed", FORMATS)
 def test_untracked_update_kernels_equal_plain(cuda, name, packed, case):
-    """fused_update (every table) and fused_update_rows (a row map into a
-    larger stack, as the window flush's flat leaf) against their plain
-    versions: equal cell states, unlisted tables untouched; for
-    fused_update_rows also at the edge cases of UPDATE_CASES."""
-    spec = _spec(name, packed, depth=4 if case == "deep" else 2)
+    """fused_update (every table; its uniforms drawn in the kernel, the
+    plain version fed `prng.uniform_rows` of the same key and grid) and
+    fused_update_rows (a row map into a larger stack, as the window
+    flush's flat leaf) against their plain versions: equal cell states,
+    unlisted tables untouched; fused_update_rows also at the edge cases
+    of UPDATE_CASES, fused_update at those of DENSE_CASES."""
+    spec = _spec(name, packed,
+                 depth=4 if case in ("deep", "dense_deep") else 2)
     rng = np.random.default_rng(3)
     seed_t = ops._seed_tensor(spec, cuda)
     kw = dict(seeds=ops._seeds_tuple(spec), width=spec.width,
               counter=spec.counter, cpl=spec.cells_per_lane)
+    if case.startswith("dense_"):
+        _, _, _, raw, w, _, grid = _drawn_case(case[len("dense_"):], rng,
+                                               cuda)
+        r, n = raw.shape
+        skeys, mult = tsk.dedup_weighted(tc.from_numpy(raw, cuda),
+                                         torch.from_numpy(w).to(cuda))
+        key = np.asarray([4, 5], np.uint32)
+        base = _random_cells(rng, spec, (r, spec.depth), cuda)
+        ta, tp = base.clone(), base.clone()
+        ksk.reset_kernel_launches()
+        ksk.fused_update(ta, ops.as_device_keys(skeys, cuda), mult, key,
+                         grid=grid, **kw)
+        unif = _drawn_plain_uniforms(key, grid, r, np.arange(r), n, cuda)
+        ref.fused_update_plain(tp, skeys, mult, unif, seed_t, spec.counter,
+                               ksk.CHUNK, cpl=spec.cells_per_lane)
+        torch.cuda.synchronize()
+        assert ksk.kernel_launches()["fused_update"] == 1
+        assert torch.equal(signed_view(ta), signed_view(tp))
+        return
     if case != "random":
         base, rows, raw, w, unif = _update_rows_case(case, spec, rng, cuda)
         skeys, mult = tsk.dedup_weighted(raw, w)
@@ -184,7 +280,7 @@ def test_untracked_update_kernels_equal_plain(cuda, name, packed, case):
     unif = ops._parity_uniforms([4, 5], raw.shape[1], 3, [0, 1, 2], cuda)
     base = _random_cells(rng, spec, (8, 2), cuda)
     ta, tp = base[:3].clone(), base[:3].clone()
-    ksk.fused_update(ta, keys, mult, unif, **kw)
+    ksk.fused_update(ta, keys, mult, [4, 5], **kw)
     ref.fused_update_plain(tp, skeys, mult, unif, seed_t, spec.counter,
                            ksk.CHUNK, cpl=spec.cells_per_lane)
     assert torch.equal(signed_view(ta), signed_view(tp))
@@ -451,6 +547,51 @@ def test_flush_does_not_synchronize(cuda):
                             assert np.array_equal(x, lb[key][sub]), (key, sub)
                     else:
                         assert np.array_equal(va, lb[key]), key
+
+
+@pytest.mark.cuda
+def test_tracked_and_untracked_flushes_draw_no_uniform_tensor(cuda,
+                                                              monkeypatch):
+    """On the card the tracked flush (fused_update_score) and the
+    untracked all-active flush (fused_update) draw their uniforms inside
+    the kernels: with `prng.uniform_rows` made to raise, both flush, and
+    their tables equal those of the plain engine (run after, with the
+    draw restored) on the same stream."""
+    spec = _spec("CMLS16", False)
+    names = [f"t{i}" for i in range(4)]
+    rng = np.random.default_rng(8)
+    epochs = [{n: rng.zipf(1.3, 900).astype(np.uint32) % 5000
+               for n in names} for _ in range(2)]
+
+    def drive(engine):
+        tracked = CountService(spec, tenants=names, queue_capacity=2048,
+                               track_top=8, device=cuda, engine=engine)
+        flat = CountService(spec, tenants=names, queue_capacity=2048,
+                            device=cuda, engine=engine)
+        for events in epochs:
+            for svc in (tracked, flat):
+                svc.enqueue_many(events)
+                svc.flush()
+        torch.cuda.synchronize()
+        return tracked, flat
+
+    def refuse(*args, **kw):
+        raise AssertionError("a uniform tensor was drawn")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(prng, "uniform_rows", refuse)
+        ksk.reset_kernel_launches()
+        auto = drive("auto")
+        launches = ksk.kernel_launches()
+    assert launches["fused_update_score"] == 2
+    assert launches["fused_update"] == 2
+    plain = drive("plain")
+    for a, p in zip(auto, plain):
+        assert a.stats["flushes"] == p.stats["flushes"] == 2
+        assert torch.equal(signed_view(a.planes[0].tables),
+                           signed_view(p.planes[0].tables))
+    assert np.array_equal(auto[0].planes[0].tracker.keys.cpu().numpy(),
+                          plain[0].planes[0].tracker.keys.cpu().numpy())
 
 
 @pytest.mark.cuda

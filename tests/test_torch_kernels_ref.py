@@ -158,22 +158,26 @@ def _update_inputs(t_rows, n, seed, universe=400):
 def test_fused_update_score_plain_vs_pallas(name, packed):
     """Narrow rows (128 cells) with 2 chunks of keys: cross-chunk
     collisions, mult == 0 entries, nonzero starting states, a row map
-    that skips and reorders rows."""
+    that skips and reorders rows.  The wrapper draws its uniforms from the
+    flush key over the dense (3, N) grid at the rows; the Pallas kernel
+    is fed the reference's own draw of the same grid."""
     jcnt, tcnt = _counters(name)
     width = 128
     cpl = jcnt.cells_per_lane if packed else 1
     tables = _tables(name, packed, 3, width, 5)
-    _, _, keys, mult, unif = _update_inputs(2, 2 * CHUNK, 6)
+    _, _, keys, mult, _ = _update_inputs(2, 2 * CHUNK, 6)
     rows = np.asarray([2, 0], np.int32)
+    key = np.asarray([6, 9], np.uint32)
+    unif = jops._parity_uniforms(key, 2 * CHUNK, 3, rows)
     cand = np.concatenate([keys[:, :40], np.asarray([[0, 0xFFFF_FFFF]] * 2,
                                                     np.uint32)], axis=1)
     jt, jest = jks.fused_update_score_pallas(
         jnp.asarray(tables), jnp.asarray(keys), jnp.asarray(mult),
-        jnp.asarray(unif), jnp.asarray(cand), jnp.asarray(rows), seeds=SEEDS,
+        unif, jnp.asarray(cand), jnp.asarray(rows), seeds=SEEDS,
         width=width, counter=jcnt, interpret=True, cpl=cpl)
     tt = _t(tables)
     out, test = tks.fused_update_score(
-        tt, _t(keys), _t(mult), _t(unif), _t(cand), _t(rows), seeds=SEEDS,
+        tt, _t(keys), _t(mult), key, _t(cand), rows, seeds=SEEDS,
         width=width, counter=tcnt, cpl=cpl)
     assert out is tt  # in place
     _check_states(name, tc.to_numpy(out), jt, max_frac=0.02)

@@ -154,9 +154,14 @@ def _batch(rng, r, n):
 
 @pytest.mark.parametrize("name,packed", FORMATS)
 def test_update_kernels_plain_match_pallas(name, packed):
+    """The dense update's wrapper draws its uniforms from the flush key and
+    grid (here a decoupled (5, N) grid at rows 1, 4, 2); the Pallas kernel
+    is fed the reference's own draw of the same grid."""
     js, ts = _specs(name, packed)
     rng = np.random.default_rng(2)
-    keys, mult, unif = _batch(rng, 3, 2300)  # three CHUNKs, the last short
+    keys, mult, _ = _batch(rng, 3, 2300)  # three CHUNKs, the last short
+    key, grid = np.asarray([9, 4], np.uint32), (5, np.asarray([1, 4, 2]))
+    unif = np.array(jops._parity_uniforms(key, 2300, *grid))
     tables = _random_tables(rng, js, (5, 2))
     kw = dict(seeds=jops._seeds_tuple(js), width=js.width,
               counter=js.counter, interpret=True,
@@ -168,8 +173,7 @@ def test_update_kernels_plain_match_pallas(name, packed):
                counter=ts.counter, cpl=ts.cells_per_lane)
     t_keys = tc.from_numpy(keys, "cpu")
     got = tks.fused_update(tc.from_numpy(tables[:3], "cpu"), t_keys,
-                           torch.from_numpy(mult), torch.from_numpy(unif),
-                           **tkw)
+                           torch.from_numpy(mult), key, grid=grid, **tkw)
     _cells_close(tc.to_numpy(got), want, ts)
     rows = np.asarray([4, 0, 2], np.int32)
     want = np.asarray(jks.fused_update_rows_pallas(

@@ -56,7 +56,14 @@ exit, no result line) if anything disagrees:
                 every format (DRAWN_EDGES: 65,536 distinct keys a row,
                 one key, empty leading chunks, N < 1024, N not a multiple
                 of 1024, one row, depth 4, M not a multiple of the score
-                tile, a draw index with a nonzero high word);
+                tile, a draw index with a nonzero high word); and the
+                edge cases of the two lane kernels, window_query and
+                window_query_stacked, on the full-width leaf in every
+                format and both modes (LANE_EDGES: a zero weight at
+                bucket 0, every weight zero, the n_buckets masks 1-8,
+                (N,) probes shared by every ring (ring stride 0), N = 1,
+                N not a multiple of the tile, 300,000 keys a ring, keys 0
+                and 0xFFFFFFFF, repeated keys);
   6. paths   -- the windowed service (32 windowed CMLS16 tenants x 8
                 buckets of 60 s, a 1 GiB leaf, track_top=64, beside the
                 CMS32 metrics plane) through 12 epochs of serve_counts'
@@ -70,8 +77,9 @@ exit, no result line) if anything disagrees:
                 engine: leaves, cursors, watermarks, rings, fills,
                 trackers and answers must be equal;
   7. times   -- CUDA-event times of kernels 5-9 beside their plain
-                versions and bytes bounds; the windowed ingest rate and
-                query_all latency with kernels and with the plain engine;
+                versions and bytes bounds; the windowed ingest rate, and
+                the query_all and one-tenant query latencies, with
+                kernels and with the plain engine;
   8. sync    -- 8 full-size `enqueue_many` calls on a fresh tracked and a
                 fresh windowed service under
                 torch.cuda.set_sync_debug_mode("error") (rings filled
@@ -81,12 +89,19 @@ exit, no result line) if anything disagrees:
                 two fill classes and a windowed enqueue_many(ts=) that
                 flushes and rotates; a synchronizing call fails the run;
                 tables, leaves, cursors, rings, fills and trackers must
-                equal the plain engine's;
+                equal the plain engine's; then, in the same mode, the
+                windowed service's reads: `query` (full window,
+                n_buckets=2, gamma=0.9, mode="max") and `query_all`
+                (shared and per-tenant probes), each equal to a copy of
+                the service on the plain engine;
   9. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
                 counted), every kernel's time alone (its profiler
-                duration), then the append wrappers' host time again.
+                duration), the card's random-read floor of kernels 7-9
+                (each distinct word a call reads, read once in random
+                order by one index kernel: tools/time_read_kernels.py),
+                then the append wrappers' host time again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -525,6 +540,7 @@ def check_slice2_kernels(dev, formats, epoch_keys) -> tuple[dict, dict]:
             "(sum and max, 3 weight sets) equal to their plain versions")
         check_rowmap_edges(dev, fname, spec, lk, last, weight_sets, cand,
                            same)
+        check_lane_edges(dev, fname, spec, lk, probes, same)
         check_drawn_edges(dev, fname, spec, keys, same)
         if fname == "CMLS16":
             keep["window"] = dict(spec=spec, leaf=lk, probes=probes,
@@ -690,6 +706,95 @@ def check_rowmap_edges(dev, fname, spec, leaf, flush, weight_sets, cand,
     log(f"row-mapped edge cases {fname}: fused_update_rows {done}, "
         f"window_query_stacked_rows {list(QUERY_EDGES)} (sum and max, 3 "
         "weight sets) equal to their plain versions")
+
+
+# ---- edge cases of the two lane kernels, 7 and 8 (slice 6) ------------------
+
+LANE_EDGES = ("bucket0_zero", "all_zero", "n_buckets", "stride0",
+              "one_key_n", "ragged", "passes", "extreme_keys", "repeated")
+PASSES_RINGS = 4  # rings of the 300,000-key case
+
+
+def lane_edge(case, dev, probes, rng):
+    """(rings used, keys (R, N) or (N,) shared by every ring, [(label,
+    (R, B) weights)]) of one edge case of kernels 7 and 8 on the filled
+    32-ring leaf."""
+    from repro_torch.core.counters import from_numpy
+    from repro_torch.stream import window as w
+    r, n = probes.shape
+    cursors = np.arange(r) % WINDOW_BUCKETS
+    full = w.window_weights_stacked(cursors, WINDOW_BUCKETS, device=dev)
+    sets = [("full window", full)]
+    keys = probes
+    if case == "bucket0_zero":
+        zero0 = full.clone()
+        zero0[:, 0] = 0.0
+        sets = [("bucket 0 zero", zero0)]
+    elif case == "all_zero":
+        sets = [("all zero", torch.zeros_like(full))]
+    elif case == "n_buckets":
+        sets = [(f"n_buckets={k}", w.window_weights_stacked(
+            cursors, WINDOW_BUCKETS, n_buckets=k, device=dev))
+            for k in range(1, WINDOW_BUCKETS + 1)]
+    elif case == "stride0":
+        keys = probes[3].contiguous()
+    elif case == "one_key_n":
+        keys = probes[:, :1].contiguous()
+    elif case == "ragged":
+        keys = from_numpy(rng.integers(0, 2**32, (r, 4096 + 33),
+                                       dtype=np.uint64).astype(np.uint32),
+                          dev)
+    elif case == "passes":
+        r = PASSES_RINGS
+        keys = from_numpy(distinct_keys((r, 300_000)), dev)
+        sets = [("gamma=0.9", w.window_weights_stacked(
+            cursors[:r], WINDOW_BUCKETS, gamma=0.9, device=dev))]
+    elif case == "extreme_keys":
+        keys = from_numpy(rng.choice(np.array([0, 0xFFFFFFFF, 1,
+                                               0xFFFFFFFE], np.uint32),
+                                     (r, n)), dev)
+    elif case == "repeated":
+        keys = from_numpy(rng.integers(0, 5, (r, n)).astype(np.uint32), dev)
+    return r, keys, sets
+
+
+def check_lane_edges(dev, fname, spec, leaf, probes, same) -> None:
+    """Phase 5, edge cases of kernels 7 and 8 at full width in one storage
+    format, against their plain versions, exactly, in both modes:
+    LANE_EDGES (a zero weight at bucket 0, every weight zero, the
+    n_buckets masks 1..8, (N,) probes shared by every ring (ring stride
+    0), N = 1, N not a multiple of the tile,
+    300,000 keys a ring, keys 0 and 0xFFFFFFFF, repeated keys).  Kernel 8
+    reads the 32-ring leaf (PASSES_RINGS rings for "passes"), kernel 7
+    its ring 3."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sketch as ksk
+    rng = np.random.default_rng(SEED + 9)
+    seeds, seed_t = ops._seeds_tuple(spec), ops._seed_tensor(spec, dev)
+    qkw = dict(width=spec.width, counter=spec.counter,
+               cpl=spec.cells_per_lane)
+    for case in LANE_EDGES:
+        r, keys, sets = lane_edge(case, dev, probes, rng)
+        rings = leaf[:r]
+        plain_keys = keys if keys.dim() == 2 else keys.expand(r, -1)
+        for mode in ("sum", "max"):
+            for wname, wts in sets:
+                what = f"{fname} {case} {mode} {wname}"
+                got = ksk.window_query_stacked(rings, keys, wts, mode=mode,
+                                               seeds=seeds, **qkw)
+                want = ref.window_query_stacked_plain(
+                    rings, plain_keys, wts, seed_t, mode=mode, **qkw)
+                same("window_query_stacked", what, got, want)
+                got = ksk.window_query(rings[3], plain_keys[3].contiguous(),
+                                       wts[3].contiguous(), mode=mode,
+                                       seeds=seeds, **qkw)
+                same("window_query", what, got, want[3])
+                if case == "all_zero" and bool(got.any()):
+                    fail(f"window_query {what}: nonzero estimates")
+        del keys, plain_keys
+    log(f"lane-kernel edge cases {fname}: window_query and "
+        f"window_query_stacked {list(LANE_EDGES)} (sum and max) equal to "
+        "their plain versions")
 
 
 # ---- edge cases of the two drawn updates (slice 5) --------------------------
@@ -1129,6 +1234,15 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
               f"{tuple(cand.shape)}")
     for rep in report.values():
         rep["library_ms"] = None
+    # the card's random-read floor of kernels 7-9: each distinct word a
+    # call reads, once, in random order (timed alone in phase 9)
+    import time_read_kernels as trk
+    for name, keys, at in (
+            ("window_query", one_keys[None], [0]),
+            ("window_query_stacked", probes, np.arange(leaf.shape[0])),
+            ("window_query_stacked_rows", cand, rows)):
+        words = trk.read_words(leaf, keys, at, spec)
+        report[name]["floor"] = (trk.gather(leaf, words), int(words.numel()))
 
     # end to end on the windowed path
     probes_all = sc.probes_for(0, PROBES, WINDOW_TENANTS)
@@ -1148,25 +1262,33 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
             rates.append(ev / (time.perf_counter() - t0))
         return rates, ts
 
-    def window_query_ms(svc, reps):
-        svc.query_all(probes_all)
+    def read_ms(read, reps):
+        read()
         out = []
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            svc.query_all(probes_all)
+            read()
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3)
         return out
+
+    def window_query_ms(svc, reps):
+        return read_ms(lambda: svc.query_all(probes_all), reps)
+
+    def window_one_ms(svc, reps):
+        return read_ms(lambda: svc.query("trending_00", probes_all[2]), reps)
     spec_w = wsvc.planes[-1].spec
     rates, ts = window_rate(wsvc, 11, ts)
     e2e = {"window_ingest_events_per_s": summary(rates),
-           "window_query_all_ms": summary(window_query_ms(wsvc, 200))}
+           "window_query_all_ms": summary(window_query_ms(wsvc, 200)),
+           "window_query_ms": summary(window_one_ms(wsvc, 200))}
     psvc = sc.build_service(spec_w, 0, RING, SEED, TRACK_TOP, device=dev,
                             engine="plain", trending=WINDOW_TENANTS)
     e2e["window_ingest_events_per_s_plain"] = summary(
         window_rate(psvc, 3, 0.0)[0])
     e2e["window_query_all_ms_plain"] = summary(window_query_ms(psvc, 20))
+    e2e["window_query_ms_plain"] = summary(window_one_ms(psvc, 20))
     del psvc
     log(f"windowed ingest events/s (8 x (enqueue_many metrics + "
         f"enqueue_many {WINDOW_TENANTS} windowed x {BATCH} at ts) + flush): "
@@ -1175,6 +1297,9 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     log(f"windowed query_all ms ({len(probes_all)} x {PROBES} probes): "
         f"kernels {e2e['window_query_all_ms']}, plain engine "
         f"{e2e['window_query_all_ms_plain']}")
+    log(f"windowed query ms (trending_00, {PROBES} probes): kernels "
+        f"{e2e['window_query_ms']}, plain engine "
+        f"{e2e['window_query_ms_plain']}")
     many, _ = sc.make_epoch(stream_rng, 0, MICRO, BATCH)
     pairs, _ = sc.make_trending(stream_rng, WINDOW_TENANTS, MICRO, BATCH, ts)
     return report, e2e, lambda: drive_window_epoch(wsvc, many, pairs)
@@ -1401,6 +1526,68 @@ def check_flush_no_sync(dev, spec) -> dict:
     return launches
 
 
+def check_read_no_sync(dev, wsvc) -> dict:
+    """Phase 8, reads: the windowed service of phases 6-7 (its planes
+    clean) read under torch.cuda.set_sync_debug_mode("error"): `query` of
+    a windowed tenant with the full window, n_buckets=2, gamma=0.9 and
+    mode="max", and `query_all` with (N,) probes shared by every tenant
+    and with per-tenant probes.  A synchronizing call fails the run.  A
+    copy of the service on the plain engine must answer the same, exactly.
+    Returns the kernel launches of the reads with kernels."""
+    from repro_torch.convert import service_from_numpy, service_to_numpy
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    probes = sc.probes_for(0, PROBES, WINDOW_TENANTS)
+    one = probes[7]  # trending_05's probes
+    reads = [
+        ("query", lambda s: s.query("trending_05", one)),
+        ("query n_buckets=2",
+         lambda s: s.query("trending_05", one, n_buckets=2)),
+        ("query gamma=0.9", lambda s: s.query("trending_05", one,
+                                              gamma=0.9)),
+        ("query max", lambda s: s.query("trending_05", one, mode="max")),
+        ("query_all shared", lambda s: s.query_all(one)),
+        ("query_all per tenant", lambda s: s.query_all(probes))]
+    if wsvc.dirty_planes:
+        fail("sync-free reads: the windowed service has pending events")
+    plain = service_from_numpy(*service_to_numpy(wsvc), device=dev,
+                               engine="plain")
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    got, what = {}, None
+    try:
+        for what, read in reads:
+            got[what] = read(wsvc)
+    except RuntimeError as err:
+        fail(f"windowed {what} synchronized under set_sync_debug_mode"
+             f"('error'): {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    launches = ksk.kernel_launches()
+    for what, read in reads:
+        a, b = got[what], read(plain)
+        if isinstance(a, dict):
+            bad = [n for n in a if not torch.equal(a[n], b[n])]
+        else:
+            bad = [] if torch.equal(a, b) else ["trending_05"]
+        if bad:
+            fail(f"sync-free reads: {what} differs from the plain engine's "
+                 f"for {bad[:3]}")
+    want = {k: 0 for k in launches}
+    want.update(window_query=4, window_query_stacked=2, fused_query=2)
+    if launches != want:
+        fail(f"sync-free reads kernel launches {launches} != {want}")
+    log("sync-free reads: windowed query (full window, n_buckets=2, "
+        "gamma=0.9, max) and query_all (shared and per-tenant probes) "
+        "under set_sync_debug_mode('error'), no error; answers equal the "
+        f"plain engine's; launches {launches}")
+    del plain
+    return launches
+
+
 def main(device: str = "cuda") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1408,6 +1595,7 @@ def main(device: str = "cuda") -> None:
     if not (root / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(root / "tools"))
     from repro_torch.convert import service_to_numpy
     from repro_torch.core import prng
     from repro_torch.core import sketch as sk
@@ -1795,6 +1983,7 @@ def main(device: str = "cuda") -> None:
     # ---- 8. enqueue_many and the flushes without a synchronizing call ------
     sync_launches = check_enqueue_no_sync(dev, spec)
     flush_launches = check_flush_no_sync(dev, spec)
+    read_launches = check_read_no_sync(dev, wsvc)
 
     # ---- 9. profiles ---------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
@@ -1809,6 +1998,15 @@ def main(device: str = "cuda") -> None:
         fn, setup, reps = report[name].pop("timed")
         report[name]["kernel_alone_ms"] = kernel_device_ms(
             fn, reps, kernel, setup)
+        floor = report[name].pop("floor", None)
+        report[name]["floor_ms"] = None
+        if floor is not None:
+            report[name]["floor_ms"] = kernel_device_ms(floor[0], 20,
+                                                        ("index",))
+            log(f"{name}: random-read floor {report[name]['floor_ms']:.5f} "
+                f"ms for its {floor[1]} distinct words (one index kernel, "
+                f"random order), kernel alone "
+                f"{report[name]['kernel_alone_ms']:.5f} ms")
     for what, prof in (("tracked", profile),
                        ("windowed", e2e2["profile_window_epoch"])):
         log(f"one {what} epoch under torch.profiler: wall "
@@ -1843,7 +2041,7 @@ def main(device: str = "cuda") -> None:
         t_ops = rep["ops"] / FP32_OPS_PER_S * 1e3
         launches = (main_launches[name] + win_launches[name]
                     + flat_launches[name] + sync_launches[name]
-                    + flush_launches[name])
+                    + flush_launches[name] + read_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -1852,15 +2050,17 @@ def main(device: str = "cuda") -> None:
             f"library {rep['library_ms']}, bound {max(t_bytes, t_ops):.5f} "
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
-            f"flushes {main_launches[name]} / {win_launches[name]} / "
-            f"{flat_launches[name]} / {sync_launches[name]} / "
-            f"{flush_launches[name]}")
+            f"flushes / sync-free reads {main_launches[name]} / "
+            f"{win_launches[name]} / {flat_launches[name]} / "
+            f"{sync_launches[name]} / {flush_launches[name]} / "
+            f"{read_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "kernel_alone_ms": rep["kernel_alone_ms"],
             "host_us": rep["host_us"], "plain_ms": rep["plain_ms"],
+            "random_read_floor_ms": rep["floor_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rep["library_ms"]})

@@ -52,14 +52,19 @@ SIGNATURES = {
     # int64 0 .. t-1, urows as above
     "cml_fused_update": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _U, _U, _P, _U,
                          _I, _I, _U, _F, _F, _P],
-    # the three window queries: tables, r, buckets, depth, words_per_row,
-    # rows, keys, n, weights, out, mode_max, seeds, width, bits, log,
-    # max_state, logb, bm1, stream; rows: NULL for the first two, host
-    # int64 (r,) for the third, passed on to the kernel by value
-    **{name: [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _U, _I, _I, _U,
-              _F, _F, _P]
-       for name in ("cml_window_query", "cml_window_query_stacked",
-                    "cml_window_query_stacked_rows")},
+    # the first two window queries: tables, r, buckets, depth,
+    # words_per_row, keys, key_stride (0: one key row for every ring), n,
+    # weights, out, mode_max, seeds, width, bits, log, max_state, logb, bm1,
+    # stream
+    **{name: [_P, _I, _I, _I, _I, _P, ctypes.c_int64, _I, _P, _P, _I, _P,
+              _U, _I, _I, _U, _F, _F, _P]
+       for name in ("cml_window_query", "cml_window_query_stacked")},
+    # the row-mapped one: tables, r, buckets, depth, words_per_row, rows,
+    # keys, n, weights, out, mode_max, seeds, width, bits, log, max_state,
+    # logb, bm1, stream; rows: host int64 (r,), passed on to the kernel by
+    # value
+    "cml_window_query_stacked_rows": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                                      _I, _P, _U, _I, _I, _U, _F, _F, _P],
     # queue, capw, keys, r, n, meta, stream; meta: host int64 (3, r) rows /
     # fill / count, passed on to the kernel by value
     "cml_queue_append": [_P, _I, _P, _I, _I, _P, _P],

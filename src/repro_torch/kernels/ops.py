@@ -125,8 +125,19 @@ def as_device_keys(keys, device) -> torch.Tensor:
 # reads
 # --------------------------------------------------------------------------
 
+def read_keys(keys, device) -> torch.Tensor:
+    """Probe keys as torch.uint32 storage on `device`, for the reads: host
+    arrays go up through `core/staging.py` (a pinned slot, one
+    `non_blocking` copy), so a read issues no synchronize; tensors as
+    `as_device_keys` takes them."""
+    if isinstance(keys, torch.Tensor):
+        return as_device_keys(keys, device)
+    host = np.ascontiguousarray(keys, np.uint32).view(np.int32)
+    return staging.upload(device, host)[0].view(torch.uint32)
+
+
 def _query_tables(tables, spec, keys, engine):
-    keys = as_device_keys(keys, tables.device)
+    keys = read_keys(keys, tables.device)
     if engine == "plain":
         return ref.fused_query_plain(tables, keys,
                                      _seed_tensor(spec, tables.device),
@@ -141,7 +152,7 @@ def query(sketch: sk.Sketch, keys, engine: str = "auto") -> torch.Tensor:
     """One sketch's estimates: float32 (N,) (the T = 1 fused query)."""
     _check_engine(engine)
     _launch("query")
-    keys = as_device_keys(keys, sketch.table.device).reshape(1, -1)
+    keys = read_keys(keys, sketch.table.device).reshape(1, -1)
     return _query_tables(sketch.table[None], sketch.spec, keys, engine)[0]
 
 
@@ -150,7 +161,7 @@ def query_many(tables: torch.Tensor, spec: sk.SketchSpec, keys,
     """Fused multi-tenant query: tables (T, d, sw), keys (T, N) or (N,)
     (broadcast to every tenant).  Returns float32 (T, N)."""
     _check_engine(engine)
-    keys = as_device_keys(keys, tables.device)
+    keys = read_keys(keys, tables.device)
     if keys.dim() == 1:
         keys = keys.view(torch.int32).expand(tables.shape[0], -1)
         keys = keys.contiguous().view(torch.uint32)
@@ -176,7 +187,7 @@ def window_query_tables(tables: torch.Tensor, spec: sk.SketchSpec, keys,
                          "buckets")
     _launch("window_query")
     dev = tables.device
-    keys = as_device_keys(keys, dev).reshape(-1)
+    keys = read_keys(keys, dev).reshape(-1)
     weights = weights.to(device=dev, dtype=torch.float32).contiguous()
     if engine == "plain":
         return ref.window_query_plain(tables, keys, weights,
@@ -194,14 +205,19 @@ def window_query_stacked(tables: torch.Tensor, spec: sk.SketchSpec, keys,
     """Stacked multi-ring window reduction: R rings, ONE launch.
 
     tables (R, B, d, sw) rings, or with `rows` (R,) host ints the native
-    (T, B, d, sw) window leaf read in place at those rings; keys (R, N);
-    weights (R, B).  Returns float32 (R, N), row r equal to a one-ring
-    `window_query_tables` of ring r."""
+    (T, B, d, sw) window leaf read in place at those rings; keys (R, N),
+    or without `rows` (N,) probes shared by every ring (the kernel reads
+    them with ring stride 0: no (R, N) copy); weights (R, B).  Returns
+    float32 (R, N), row r equal to a one-ring `window_query_tables` of
+    ring r."""
     _check_window(mode, engine)
     n_rings = tables.shape[0] if rows is None else len(rows)
     dev = tables.device
-    keys = as_device_keys(keys, dev)
-    if keys.shape[0] != n_rings:
+    keys = read_keys(keys, dev)
+    if keys.dim() == 1 and rows is None:
+        if engine == "plain":
+            keys = keys.expand(n_rings, -1)
+    elif keys.shape[0] != n_rings:
         raise ValueError(f"per-ring keys need {n_rings} rows, "
                          f"got {keys.shape[0]}")
     if tuple(weights.shape) != (n_rings, tables.shape[1]):

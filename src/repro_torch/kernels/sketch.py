@@ -99,19 +99,19 @@ def _check_cuda(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-_GEOMETRY: dict = {}  # (shape, dtype, width, counter, cpl, dims) -> words
+_GEOMETRY: dict = {}  # (shape, dtype, width, counter, cpl) -> words
 
 
 def _table_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
-                    cpl: int, dims: int = 3) -> int:
-    """Validate a (T, d, sw) table stack, or with dims=4 a (R, B, d, sw)
-    ring stack; return 32-bit words per row.  The shape checks are cached
-    per geometry (a wrapper runs them on every launch)."""
-    key = (tables.shape, tables.dtype, width, counter, cpl, dims)
+                    cpl: int) -> int:
+    """Validate a (T, d, sw) table stack; return 32-bit words per row.
+    The shape checks are cached per geometry (a wrapper runs them on
+    every launch)."""
+    key = (tables.shape, tables.dtype, width, counter, cpl)
     wpr = _GEOMETRY.get(key)
     if wpr is None:
         wpr = _GEOMETRY[key] = _check_geometry(tables, width, counter, cpl,
-                                               dims)
+                                               3)
     if not tables.is_contiguous():
         raise ValueError("tables must be contiguous")
     return wpr
@@ -382,57 +382,73 @@ fused_update.launches = 0
 # --------------------------------------------------------------------------
 
 _MODES = {"sum": 0, "max": 1}
+_RINGS: dict = {}  # (shape, dtype, width, counter, cpl) -> words per row
 
 
-def _window_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
-                     cpl: int, mode: str) -> int:
-    """Validate a (R, B, d, sw) ring stack; return 32-bit words per row."""
-    if mode not in _MODES:
-        raise ValueError(f"unknown window query mode {mode!r}")
-    if tables.dim() != 4:
-        raise ValueError(f"rings must be (R, B, d, sw), got "
-                         f"{tuple(tables.shape)}")
-    if tables.shape[1] < 1:
-        raise ValueError("need at least one bucket")
+def _ring_geometry(tables: torch.Tensor, width: int, counter: CounterSpec,
+                   cpl: int, dims: int) -> int:
+    """Validate one ring (B, d, sw) (dims 3) or a ring stack (R, B, d, sw)
+    (dims 4); return 32-bit words per row.  The shape checks are cached
+    per geometry."""
+    key = (tables.shape, tables.dtype, width, counter, cpl)
+    wpr = _RINGS.get(key)
+    if wpr is None:
+        what = "(B, d, sw)" if dims == 3 else "(R, B, d, sw)"
+        _need(tables.dim() == dims,
+              f"rings must be {what}, got {tuple(tables.shape)}")
+        _need(tables.shape[-3] >= 1, "need at least one bucket")
+        wpr = _RINGS[key] = _check_geometry(tables, width, counter, cpl,
+                                            dims)
     if not tables.is_contiguous():
         raise ValueError("rings must be contiguous")
-    return _table_geometry(tables, width, counter, cpl, dims=4)
+    return wpr
 
 
-def _window_launch(wrapper, tables, keys, weights, rows, seeds, width,
-                   counter, mode, cpl):
-    """Check a window query's inputs (tables (R or T, B, d, sw), keys
-    (R, N), weights (R, B), rows None or (R,) host ints); run the plain
-    version on the CPU, launch `wrapper`'s kernel on CUDA."""
-    kind = _device_kind(tables, keys, weights)
-    wpr = _window_geometry(tables, width, counter, cpl, mode)
-    _, b, d, _ = tables.shape
-    n_rings = tables.shape[0] if rows is None else rows.shape[0]
+def _window_inputs(tables, keys, weights, n_rings: int, shared_ok: bool,
+                   seeds: tuple, mode: str, one_ring: bool = False) -> int:
+    """Check a window query's keys ((R, N), or (N,) where `shared_ok`),
+    weights ((R, B), or (B,) for `one_ring`), seeds and mode; return the
+    mode's kernel flag."""
     # messages are formatted only on failure: this runs on every launch
-    if keys.dim() != 2 or keys.shape[0] != n_rings:
-        raise ValueError(f"keys must be (R={n_rings}, N), got "
-                         f"{tuple(keys.shape)}")
-    if tuple(weights.shape) != (n_rings, b):
-        raise ValueError(f"weights must be (R={n_rings}, B={b}), got "
+    mode_max = _MODES.get(mode)
+    if mode_max is None:
+        raise ValueError(f"unknown window query mode {mode!r}")
+    b, d = tables.shape[-3], tables.shape[-2]
+    if not ((shared_ok and keys.dim() == 1)
+            or (keys.dim() == 2 and keys.shape[0] == n_rings)):
+        raise ValueError(f"keys must be (R={n_rings}, N)"
+                         + (" or (N,)" if shared_ok else "")
+                         + f", got {tuple(keys.shape)}")
+    want = (b,) if one_ring else (n_rings, b)
+    if weights.shape != want:
+        raise ValueError(f"weights must be {want}, got "
                          f"{tuple(weights.shape)}")
     if len(seeds) != d:
         raise ValueError(f"{len(seeds)} seeds for depth {d}")
-    if kind == "cpu":
-        rows_t = (torch.arange(n_rings) if rows is None
-                  else torch.from_numpy(rows))
-        return ref.window_query_stacked_rows_plain(
-            tables, keys, weights, rows_t, _seed_tensor(seeds, "cpu"), width,
-            counter, mode, cpl)
-    n = keys.shape[1]
-    _keys_ok("keys", keys)
+    return mode_max
+
+
+def _window_cuda_ok(weights) -> None:
     if weights.dtype != torch.float32 or not weights.is_contiguous():
         raise ValueError("weights must be contiguous float32")
-    out = torch.empty((n_rings, n), dtype=torch.float32, device=tables.device)
+
+
+def _window_lanes(wrapper, tables, keys, weights, n_rings, wpr, mode_max,
+                  seeds, width, counter) -> torch.Tensor:
+    """Launch kernel 7 or 8 (`wrapper`'s): R rings, keys (R, N), or (N,)
+    read by every ring (ring stride 0), weights (R, B); float32 (R, N),
+    or (N,) for one ring."""
+    _keys_ok("keys", keys)
+    n = keys.shape[-1]
+    stride = 0 if keys.dim() == 1 else n
+    _window_cuda_ok(weights)
+    shape = (n,) if wrapper is window_query else (n_rings, n)
+    out = torch.empty(shape, dtype=torch.float32, device=tables.device)
     rc = getattr(build.load(), "cml_" + wrapper.__name__)(
-        tables.data_ptr(), n_rings, b, d, wpr,
-        None if rows is None else rows.ctypes.data, keys.data_ptr(), n,
-        weights.data_ptr(), out.data_ptr(), _MODES[mode], _seed_array(seeds),
-        width, *_counter_args(counter), _stream(tables.device))
+        tables.data_ptr(), n_rings, tables.shape[-3], tables.shape[-2], wpr,
+        keys.data_ptr(), stride, n, weights.data_ptr(), out.data_ptr(),
+        mode_max, _seed_array(seeds), width, *_counter_args(counter),
+        _stream(tables.device))
     _check_cuda(wrapper.__name__, rc)
     wrapper.launches += 1
     return out
@@ -445,11 +461,18 @@ def window_query(tables: torch.Tensor, keys: torch.Tensor,
     """One ring's window query: tables (B, d, sw), keys (N,), weights
     (B,) float32 -> float32 (N,): per key, the weighted "sum" (in bucket
     order) or "max" over buckets of the query estimate."""
-    _need(tables.dim() == 3 and keys.dim() == 1 and weights.dim() == 1,
-          "window_query takes tables (B, d, sw), keys (N,), weights (B,)")
-    return _window_launch(window_query, tables[None], keys[None],
-                          weights[None], None, seeds, width, counter, mode,
-                          cpl)[0]
+    kind = _device_kind(tables, keys, weights)
+    wpr = _ring_geometry(tables, width, counter, cpl, dims=3)
+    if keys.dim() != 1:
+        raise ValueError(f"keys must be (N,), got {tuple(keys.shape)}")
+    mode_max = _window_inputs(tables, keys, weights, 1, True, seeds, mode,
+                              one_ring=True)
+    if kind == "cpu":
+        return ref.window_query_plain(tables, keys, weights,
+                                      _seed_tensor(seeds, "cpu"), width,
+                                      counter, mode, cpl)
+    return _window_lanes(window_query, tables, keys, weights, 1, wpr,
+                         mode_max, seeds, width, counter)
 
 
 window_query.launches = 0
@@ -459,10 +482,21 @@ def window_query_stacked(tables: torch.Tensor, keys: torch.Tensor,
                          weights: torch.Tensor, *, seeds: tuple, width: int,
                          counter: CounterSpec, mode: str = "sum",
                          cpl: int = 1) -> torch.Tensor:
-    """R rings in one launch: tables (R, B, d, sw), keys (R, N), weights
-    (R, B) -> float32 (R, N)."""
-    return _window_launch(window_query_stacked, tables, keys, weights, None,
-                          seeds, width, counter, mode, cpl)
+    """R rings in one launch: tables (R, B, d, sw), keys (R, N) per ring
+    or (N,) shared by every ring (read with ring stride 0, not copied),
+    weights (R, B) -> float32 (R, N)."""
+    kind = _device_kind(tables, keys, weights)
+    wpr = _ring_geometry(tables, width, counter, cpl, dims=4)
+    r = tables.shape[0]
+    mode_max = _window_inputs(tables, keys, weights, r, True, seeds, mode)
+    if kind == "cpu":
+        if keys.dim() == 1:
+            keys = keys.expand(r, -1)
+        return ref.window_query_stacked_plain(
+            tables, keys, weights, _seed_tensor(seeds, "cpu"), width,
+            counter, mode, cpl)
+    return _window_lanes(window_query_stacked, tables, keys, weights, r, wpr,
+                         mode_max, seeds, width, counter)
 
 
 window_query_stacked.launches = 0
@@ -475,12 +509,27 @@ def window_query_stacked_rows(tables: torch.Tensor, keys: torch.Tensor,
                               ) -> torch.Tensor:
     """Rings rows[i] (host integers) of the native (T, B, d, sw) window
     leaf, read in place: keys (R, N), weights (R, B) -> float32 (R, N)."""
-    if tables.dim() != 4:
-        raise ValueError(f"rings must be (T, B, d, sw), got "
-                         f"{tuple(tables.shape)}")
+    kind = _device_kind(tables, keys, weights)
+    wpr = _ring_geometry(tables, width, counter, cpl, dims=4)
     rows = _host_rows(rows, tables.shape[0], unique=False)
-    return _window_launch(window_query_stacked_rows, tables, keys, weights,
-                          rows, seeds, width, counter, mode, cpl)
+    r = rows.shape[0]
+    mode_max = _window_inputs(tables, keys, weights, r, False, seeds, mode)
+    if kind == "cpu":
+        return ref.window_query_stacked_rows_plain(
+            tables, keys, weights, torch.from_numpy(rows),
+            _seed_tensor(seeds, "cpu"), width, counter, mode, cpl)
+    _keys_ok("keys", keys)
+    _window_cuda_ok(weights)
+    n = keys.shape[1]
+    out = torch.empty((r, n), dtype=torch.float32, device=tables.device)
+    _, b, d, _ = tables.shape
+    rc = build.load().cml_window_query_stacked_rows(
+        tables.data_ptr(), r, b, d, wpr, rows.ctypes.data, keys.data_ptr(),
+        n, weights.data_ptr(), out.data_ptr(), mode_max, _seed_array(seeds),
+        width, *_counter_args(counter), _stream(tables.device))
+    _check_cuda("window_query_stacked_rows", rc)
+    window_query_stacked_rows.launches += 1
+    return out
 
 
 window_query_stacked_rows.launches = 0

@@ -31,7 +31,12 @@ PyTorch counterpart of `repro/stream/service.py`, without tiering:
   * Each plane draws its flush uniforms from the raw threefry key
     (seed, flush#), bit-identical to the reference's draw.
 
-Reads are read-your-writes: they flush the plane they touch first.
+Reads are read-your-writes: they flush the plane they touch first.  A
+read on a clean plane issues no synchronize: its probes go up through
+`core/staging.py` (`query_all` uploads them once for every plane), a
+window plane keeps its full-window weights until a cursor moves, and
+`query_all` hands a window plane's shared (N,) probes to the stacked
+query as they are (ring stride 0).
 
 The port updates tables, leaves and rings in place (the reference
 donates them); the results are the same.  Tiering, admission, the
@@ -419,6 +424,8 @@ class WindowPlane(_PlaneBase):
         self.tables = zeros((0, wspec.buckets, s.depth, s.storage_width),
                             s.storage_dtype, self.device)
         self.cursors = np.zeros((0,), np.int32)
+        self._wts_key: Optional[bytes] = None  # cursors of `_wts`
+        self._wts: Optional[torch.Tensor] = None
         self.epochs: list[Optional[int]] = []
         self._init_tracker(track_top, self.device)
         self._init_telemetry(metrics, tracer, label)
@@ -613,23 +620,40 @@ class WindowPlane(_PlaneBase):
         return (to_numpy(tk.keys[row]), tk.estimates[row].cpu().numpy(),
                 tk.filled[row].cpu().numpy())
 
+    def full_weights(self) -> torch.Tensor:
+        """(T, B) full-window weights of every ring, on the device:
+        computed once (`window_weights_stacked`) and kept until a cursor
+        moves (the cache is keyed by the cursors)."""
+        key = self.cursors.tobytes()
+        if key != self._wts_key:
+            self._wts = w.window_weights_stacked(
+                self.cursors, self.wspec.buckets, device=self.device)
+            self._wts_key = key
+        return self._wts
+
     def query_row(self, row: int, keys, engine: Optional[str] = None,
-                  **kw) -> torch.Tensor:
-        """Window estimate for one tenant: ONE one-ring window query."""
-        return w.window_query(self.win_view(row), keys,
-                              engine=engine or self.engine, **kw)
+                  n_buckets: Optional[int] = None, mode: str = "sum",
+                  gamma: Optional[float] = None) -> torch.Tensor:
+        """Window estimate for one tenant: ONE one-ring window query.  The
+        full window's weights are `full_weights`' row; with n_buckets or
+        gamma, `window_weights_stacked` computes them for this ring."""
+        if n_buckets is None and gamma is None:
+            wts = self.full_weights()[row]
+        else:
+            wts = w.window_weights_stacked(
+                self.cursors[row:row + 1], self.wspec.buckets, n_buckets,
+                gamma, device=self.device)[0]
+        return ops.window_query_tables(self.tables[row], self.spec, keys, wts,
+                                       mode=mode,
+                                       engine=engine or self.engine)
 
     def query_rows(self, keys) -> torch.Tensor:
         """(T, N) window estimates, tenant-ordered: ONE stacked launch over
         the whole leaf, each ring at its full-window sum (keys (N,) are
-        shared by every tenant, or (T, N) per tenant)."""
-        keys = ops.as_device_keys(keys, self.device)
-        if keys.dim() == 1:
-            keys = keys.view(torch.int32).expand(len(self.names), -1)
-            keys = keys.contiguous().view(torch.uint32)
-        wts = w.window_weights_stacked(self.cursors, self.wspec.buckets,
-                                       device=self.device)
-        return ops.window_query_stacked(self.tables, self.spec, keys, wts,
+        shared by every tenant and read with ring stride 0, or (T, N) per
+        tenant)."""
+        return ops.window_query_stacked(self.tables, self.spec, keys,
+                                        self.full_weights(),
                                         engine=self.engine)
 
     def table_row(self, row: int) -> torch.Tensor:
@@ -665,6 +689,7 @@ class CountService:
         self._wplanes: dict[w.WindowSpec, WindowPlane] = {}
         self._where: dict[str, tuple[object, int]] = {}
         self._order: list[str] = []
+        self._plane_rows: dict = {}  # plane -> its rows of `_order`
         self.metrics = metrics if metrics is not None else obs.MetricsRegistry()
         self.tracer = tracer if tracer is not None else obs.Tracer()
         self._m_events = self.metrics.counter("events")
@@ -754,6 +779,7 @@ class CountService:
         row = plane.add(name)
         self._where[name] = (plane, row)
         self._order.append(name)
+        self._plane_rows.clear()
         return row
 
     def _lookup(self, name: str) -> tuple:
@@ -915,18 +941,32 @@ class CountService:
             if per_tenant and keys.shape[0] != len(self._order):
                 raise ValueError(f"per-tenant probes need {len(self._order)} "
                                  f"rows, got {keys.shape[0]}")
-            keys = _as_keys(keys).reshape(keys.shape)
+            # one upload for every plane, without a synchronize
+            probes = ops.read_keys(_as_keys(keys).reshape(keys.shape),
+                                   self.device)
             out: dict[str, torch.Tensor] = {}
-            row_of = {name: i for i, name in enumerate(self._order)}
             for plane in self.planes:
-                if per_tenant:
-                    probes = np.stack([keys[row_of[n]] for n in plane.names])
-                else:
-                    probes = keys
-                est = plane.query_rows(probes)
-                for i, n in enumerate(plane.names):
-                    out[n] = est[i]
+                est = plane.query_rows(self._rows_of(plane, probes)
+                                       if per_tenant else probes)
+                out.update(zip(plane.names, est.unbind(0)))
             return sp.sync(out)
+
+    def _rows_of(self, plane, probes: torch.Tensor) -> torch.Tensor:
+        """The plane's tenants' rows of registry-ordered (T, N) device
+        probes: a view where they are consecutive, else one device gather
+        (its row index uploaded once and kept until a tenant is added)."""
+        rows = self._plane_rows.get(plane)
+        if rows is None:
+            pos = {name: i for i, name in enumerate(self._order)}
+            idx = np.asarray([pos[n] for n in plane.names], np.int64)
+            if np.array_equal(idx, np.arange(idx[0], idx[0] + idx.size)):
+                rows = slice(int(idx[0]), int(idx[0]) + idx.size)
+            else:
+                rows = staging.upload(self.device, idx)[0]
+            self._plane_rows[plane] = rows
+        if isinstance(rows, slice):
+            return probes[rows]
+        return signed_view(probes)[rows].view(torch.uint32)
 
     def topk(self, name: str, k: Optional[int] = None, **window_kw):
         """Current top-k heavy hitters of one tenant: (keys, estimates)

@@ -23,6 +23,7 @@ from repro_torch.core.counters import signed_view
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sketch as ksk
 from repro_torch.stream import CountService, WindowSpec
+from repro_torch.stream import window as tw
 
 FORMATS = [("CMS32", False), ("CMLS16", False), ("CMLS16", True),
            ("CMLS8", False), ("CMLS8", True)]
@@ -384,6 +385,126 @@ def test_window_query_kernels_equal_plain(cuda, name, packed, mode, case):
     assert torch.equal(one, want[1])
 
 
+# edge cases of kernels 7 and 8 (window_query, window_query_stacked): one
+# lane a (key, bucket), buckets of weight 0 not read, keys with a ring
+# stride (0: one row shared by every ring)
+LANE_CASES = ("random", "bucket0_zero", "all_zero", "n_buckets",
+              "stride0", "one_key_n", "ragged", "passes", "extreme_keys",
+              "repeated")
+
+
+def _lane_case(case, rng, r):
+    """(keys (r, N) or (N,) numpy, weight sets [(label, (r, B) numpy)]) of
+    one window read of r rings of 8 buckets."""
+    n = 777
+    if case == "one_key_n":  # N = 1
+        n = 1
+    elif case == "ragged":  # N not a multiple of any block's keys
+        n = 4096 + 33
+    elif case == "passes":  # 300,000 keys a ring: 9,375 blocks a ring
+        n = 300_000
+    keys = rng.integers(0, 2**32, (r, n), dtype=np.uint64).astype(np.uint32)
+    if case == "passes":
+        keys = _distinct_keys(r * n).reshape(r, n)
+        keys[:, ::97] = 0xFFFFFFFF
+    elif case == "extreme_keys":
+        keys = rng.choice(np.array([0, 0xFFFFFFFF, 1, 0xFFFFFFFE],
+                                   np.uint32), (r, n))
+    elif case == "repeated":
+        keys = rng.integers(0, 5, (r, n)).astype(np.uint32)
+    elif case == "stride0":
+        keys = keys[0]
+    full = rng.random((r, 8)).astype(np.float32)
+    if case == "bucket0_zero":
+        full[:, 0] = 0.0
+        full[1, 3] = 0.0
+    elif case == "all_zero":
+        full[:] = 0.0
+    sets = [("weights", full)]
+    if case == "n_buckets":  # window_weights_stacked's masks, k = 1..8
+        cursors = np.arange(r) % 8
+        sets = [(f"n_buckets={k}",
+                 tw.window_weights_stacked(cursors, 8, k).numpy())
+                for k in range(1, 9)]
+    return keys, sets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LANE_CASES)
+@pytest.mark.parametrize("name,packed", FORMATS)
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_window_lane_kernels_equal_plain(cuda, name, packed, mode, case):
+    """Kernels 7 and 8 against their plain versions, bit for bit, on
+    rings of 8 x 2 (the template instance) at the edge cases of
+    LANE_CASES: a zero weight at bucket 0, every weight zero, the
+    n_buckets masks 1..8, (N,) keys shared by every ring (ring stride 0),
+    N = 1, N not a multiple of the tile,
+    300,000 keys a ring, keys 0 and 0xFFFFFFFF, repeated keys; one
+    launch a call."""
+    spec = _spec(name, packed)
+    rng = np.random.default_rng(9)
+    r = 5
+    rings = _random_cells(rng, spec, (r, 8, 2), cuda)
+    keys_np, sets = _lane_case(case, rng, r)
+    keys = tc.from_numpy(keys_np, cuda)
+    seed_t = ops._seed_tensor(spec, cuda)
+    kw = dict(width=spec.width, counter=spec.counter, mode=mode,
+              cpl=spec.cells_per_lane)
+    plain_keys = keys if keys.dim() == 2 else keys.expand(r, -1)
+    for label, wts_np in sets:
+        wts = torch.from_numpy(wts_np).to(cuda)
+        ksk.reset_kernel_launches()
+        got = ksk.window_query_stacked(rings, keys, wts,
+                                       seeds=ops._seeds_tuple(spec), **kw)
+        one = ksk.window_query(rings[2], plain_keys[2].contiguous(),
+                               wts[2].contiguous(),
+                               seeds=ops._seeds_tuple(spec), **kw)
+        want = ref.window_query_stacked_plain(rings, plain_keys, wts, seed_t,
+                                              **kw)
+        torch.cuda.synchronize()
+        launches = ksk.kernel_launches()
+        assert launches["window_query_stacked"] == 1, label
+        assert launches["window_query"] == 1, label
+        assert torch.equal(got, want), label
+        assert torch.equal(one, want[2]), label
+        if case == "all_zero":
+            assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets,depth", [(4, 3), (1, 2), (3, 8),
+                                           (33, 1)])
+@pytest.mark.parametrize("name,packed", FORMATS)
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_window_lane_kernels_general_instance(cuda, name, packed, mode,
+                                              buckets, depth):
+    """The general instance of kernels 7 and 8 (any B, any depth up to
+    8; B = 33 reduces in two rounds of 32 buckets) against the plain
+    versions, per-ring and shared keys, with zero weights."""
+    spec = _spec(name, packed, depth=depth)
+    rng = np.random.default_rng(10)
+    r = 3
+    rings = _random_cells(rng, spec, (r, buckets, depth), cuda)
+    keys = tc.from_numpy(rng.integers(0, 2**32, (r, 1000), dtype=np.uint64)
+                         .astype(np.uint32), cuda)
+    wts_np = rng.random((r, buckets)).astype(np.float32)
+    wts_np[0, 0] = 0.0
+    wts_np[2, buckets // 2:] = 0.0
+    wts = torch.from_numpy(wts_np).to(cuda)
+    seeds, seed_t = ops._seeds_tuple(spec), ops._seed_tensor(spec, cuda)
+    kw = dict(width=spec.width, counter=spec.counter, mode=mode,
+              cpl=spec.cells_per_lane)
+    for probes in (keys, keys[1]):
+        plain_keys = probes if probes.dim() == 2 else probes.expand(r, -1)
+        got = ksk.window_query_stacked(rings, probes, wts, seeds=seeds, **kw)
+        want = ref.window_query_stacked_plain(rings, plain_keys, wts, seed_t,
+                                              **kw)
+        assert torch.equal(got, want)
+    one = ksk.window_query(rings[0], keys[0], wts[0], seeds=seeds, **kw)
+    assert torch.equal(one, ref.window_query_plain(
+        rings[0], keys[0], wts[0], seed_t, **kw))
+
+
 def _append_case(case, kind, rng, device):
     """(ring, keys, rows, fill, count) of one append edge case: rows None
     for the dense kernel (batch row i -> ring row i)."""
@@ -547,6 +668,55 @@ def test_flush_does_not_synchronize(cuda):
                             assert np.array_equal(x, lb[key][sub]), (key, sub)
                     else:
                         assert np.array_equal(va, lb[key]), key
+
+
+@pytest.mark.cuda
+def test_windowed_reads_do_not_synchronize(cuda):
+    """A windowed service's reads issue no synchronizing CUDA call:
+    `query` (full window, n_buckets, gamma, max) and `query_all` (shared
+    and per-tenant probes) run under torch.cuda.set_sync_debug_mode
+    ("error") after rotations.  Each answer equals the plain engine's on
+    the same stream."""
+    spec = _spec("CMLS16", False)
+    wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+    names = ["x", "y", "z"]
+    rng = np.random.default_rng(8)
+    stream = [({n: (rng.zipf(1.3, 500) % 3000).astype(np.uint32)
+                for n in names}, ts) for ts in (10.0, 75.0, 200.0)]
+    probes = rng.integers(0, 3000, (4, 300)).astype(np.uint32)
+    reads = [lambda s: s.query("y", probes[2]),
+             lambda s: s.query("y", probes[2], n_buckets=2),
+             lambda s: s.query("y", probes[2], gamma=0.9),
+             lambda s: s.query("y", probes[2], mode="max"),
+             lambda s: s.query_all(probes[0]),
+             lambda s: s.query_all(probes)]
+    out = []
+    for engine in ("auto", "plain"):
+        svc = CountService(queue_capacity=4096, track_top=8, device=cuda,
+                           engine=engine)
+        svc.add_tenant("m", spec=_spec("CMS32", False))
+        for n in names:
+            svc.add_tenant(n, window=wspec)
+        for events, ts in stream:
+            svc.enqueue_many(events, ts=ts)
+            svc.flush()
+        torch.cuda.synchronize()
+        before = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [read(svc) for read in reads]
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
+        out.append(got)
+    for a, b in zip(*out):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for n in a:
+                assert torch.equal(a[n], b[n]), n
+        else:
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -16,9 +16,9 @@ after 64 MiB of other writes:
     shared memory; one block a tile of 4,096 candidates with its own
     hash), in both orders, built here with the port's nvcc flags and held
     equal to `window_query_stacked_rows` first;
-  * percand_all -- the one-thread-per-candidate `window_query_stacked`
-    kernel on every candidate (the rings are leaf rows 0..31 in order):
-    the shipped kernel's design without its unrolled 8 x 2 instance;
+  * percand_all -- the `window_query_stacked` kernel (one lane a
+    (candidate, bucket)) on every candidate (the rings are leaf rows
+    0..31 in order);
   * percand_distinct -- the same kernel on each ring's distinct
     candidates only (every ring cut to the smallest distinct count);
   * gather_random / gather_sorted -- PyTorch's own index kernel reading

@@ -94,10 +94,34 @@ exit, no result line) if anything disagrees:
                 n_buckets=2, gamma=0.9, mode="max") and `query_all`
                 (shared and per-tenant probes), each equal to a copy of
                 the service on the plain engine;
-  9. profiles -- last, since a torch.profiler session slows the process's
+  9. admission and snapshots -- the tracked service of phase 3 with the
+                launcher's emb_ids policy (`serve_counts.EMB_IDS`) on every
+                tenant: 8 full-size `enqueue_many`, then `admit` of 8,192
+                Zipf ids a tenant (the first flushes: kernel 2), equal to
+                the plain engine's and to `rows_of` of each `topk_row`; the
+                32-tenant windowed service (1 GiB leaf) with the policy,
+                through 4 epochs of phase 6's stream and one pending
+                microbatch, then `admit` with n_buckets=5 and gamma=0.8
+                (kernels 6 and 9), equal to the plain engine's; `admit` on
+                clean tracked and windowed planes under
+                set_sync_debug_mode("error"); `observe_and_admit` on one
+                4 MiB CMLS16 table and 65,536 Zipf ids, engine "kernel"
+                (kernels 5 and 1) equal to "xla"; p50 / p95 of `admit`;
+                then each service, with pending ring events, snapshot
+                into a temporary directory and restored: every leaf equal
+                byte for byte, `query_all`, `topk` (and the windowed
+                `query`) equal, equal leaves after the same further
+                traffic and a flush on both (kernels 1-4 and 6-9 launched
+                by the restored services), `packed=True` answers
+                bit-identical, `track_top` 32 and 128 give
+                `resize_stacked` of the saved trackers; snapshot and
+                restore seconds and GiB/s, peak device memory;
+ 10. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
-                counted), every kernel's time alone (its profiler
+                counted), one tracked and one windowed `admit` (their
+                launches, copies and synchronizes), every kernel's time
+                alone (its profiler
                 duration), the card's random-read floor of kernels 7-9
                 (each distinct word a call reads, read once in random
                 order by one index kernel: tools/time_read_kernels.py),
@@ -185,7 +209,7 @@ def timed(fn, reps: int, setup=None) -> dict:
     """A kernel wrapper's times: "ms", CUDA events around one call
     (`cuda_ms`), and "host_us", the host time of one call in us
     (perf_counter around it, the card idle before it); "timed" keeps fn
-    and setup for the kernel-alone profile of phase 9."""
+    and setup for the kernel-alone profile of phase 10."""
     ms = cuda_ms(fn, reps, setup)
     total = 0.0
     for _ in range(reps):
@@ -233,8 +257,10 @@ def profile_epoch(drive) -> dict:
     for key, _, count in host_rows:
         if key in calls:
             calls[key] += count
+    h2d = sum(c for key, _, c in device_rows if "HtoD" in key)
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall * 1e3), "runtime_calls": calls,
+            "host_to_device_copies": h2d,
             "device_top": top(device_rows), "host_top": top(host_rows)}
 
 
@@ -1139,7 +1165,7 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     versions and bytes bounds; the windowed ingest rate and query_all
     latency with kernels and with the plain engine.  Returns (kernel
     report, end-to-end numbers, the drive of one more windowed epoch for
-    the profile of phase 9)."""
+    the profile of phase 10)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sketch as ksk
     from repro_torch.kernels import ops
@@ -1235,7 +1261,7 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     for rep in report.values():
         rep["library_ms"] = None
     # the card's random-read floor of kernels 7-9: each distinct word a
-    # call reads, once, in random order (timed alone in phase 9)
+    # call reads, once, in random order (timed alone in phase 10)
     import time_read_kernels as trk
     for name, keys, at in (
             ("window_query", one_keys[None], [0]),
@@ -1586,6 +1612,372 @@ def check_read_no_sync(dev, wsvc) -> dict:
         f"plain engine's; launches {launches}")
     del plain
     return launches
+
+
+# ---- phase 9 of slice 7: admission and snapshot/restore ---------------------
+
+ADMIT_CALLS = 200          # admit calls timed a path (p50 / p95)
+ADMIT_EPOCHS = 4           # windowed epochs before the windowed admits
+
+
+def flat_leaves(svc) -> dict:
+    from repro_torch.convert import service_to_numpy
+    from repro_torch.train.checkpoint import flatten
+    return flatten(service_to_numpy(svc)[1])
+
+
+def compare_leaves(a: dict, b: dict, what: str) -> None:
+    if list(a) != list(b):
+        fail(f"{what}: leaf names differ: {list(a)} != {list(b)}")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+            fail(f"{what}: leaf {k} differs ({a[k].dtype} vs {b[k].dtype}, "
+                 f"{int(np.sum(a[k] != b[k]))} entries)")
+
+
+def check_admits(got, want, what: str) -> None:
+    for name, (ra, ma) in got.items():
+        rb, mb = want[name]
+        if not (ra.device == ma.device == rb.device
+                and ra.dtype == torch.int32 and ma.dtype == torch.bool):
+            fail(f"{what}: admit({name}) returned {ra.device} {ra.dtype}, "
+                 f"{ma.device} {ma.dtype}")
+        if not (torch.equal(ra, rb) and torch.equal(ma, mb)):
+            fail(f"{what}: admit({name}) differs from the plain engine's "
+                 f"({int((ma != mb).sum())} decisions, "
+                 f"{int((ra != rb).sum())} rows)")
+
+
+def admit_ids(rng, tenants: int, offset_of) -> dict:
+    """BATCH Zipf(1.3) ids a tenant, in its own key universe."""
+    return {t: ((rng.zipf(1.3, BATCH) % 10_000)
+                + offset_of(t)).astype(np.uint32) for t in range(tenants)}
+
+
+def tracked_admission(dev, spec, aspec):
+    """(a): the tracked service of phase 3 with the emb_ids policy on
+    every tenant, 8 enqueue_many microbatches (the rings full, nothing
+    flushed), then admit of BATCH ids a tenant (the first flushes the
+    plane: kernel 2); kernels and plain engine, rows and masks equal, and
+    equal to `rows_of` recomputed from `topk_row`."""
+    from repro_torch.core import admission as adm
+    from repro_torch.core.counters import from_numpy
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 9)
+    many, _ = sc.make_epoch(rng, TENANTS, MICRO, BATCH)
+    ids = admit_ids(rng, TENANTS, lambda t: t * 1_000_000)
+    names = [f"tenant_{t:02d}" for t in range(TENANTS)]
+
+    def drive(engine: str):
+        svc = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                               device=dev, engine=engine, admission=aspec)
+        for events in many:
+            svc.enqueue_many(events)
+        got = {n: svc.admit(n, ids[t]) for t, n in enumerate(names)}
+        torch.cuda.synchronize()
+        return svc, got
+
+    ksk.reset_kernel_launches()
+    svc, got = drive("auto")
+    launches = ksk.kernel_launches()
+    psvc, pgot = drive("plain")
+    check_admits(got, pgot, "tracked admission")
+    compare_services(svc, psvc, "tracked admission")
+    plane = svc.planes[0]
+    for t, n in enumerate(names):
+        keys, est, filled = plane.topk_row(t)
+        hot = keys[filled & (est >= aspec.threshold)]
+        mask = np.isin(ids[t], hot)
+        rows = adm.rows_of(from_numpy(ids[t], dev),
+                           torch.from_numpy(mask).to(dev), aspec)
+        if not (np.array_equal(mask, got[n][1].cpu().numpy())
+                and torch.equal(rows, got[n][0])):
+            fail(f"tracked admission: admit({n}) != rows_of of its topk_row")
+    if not launches["fused_update_score"]:
+        fail(f"tracked admission launched no fused_update_score: {launches}")
+    share = float(np.mean([float(m.float().mean()) for _, m in got.values()]))
+    log(f"tracked admission: {TENANTS} tenants x {BATCH} ids, admitted "
+        f"share {share:.4f}; rows and masks equal the plain engine's and "
+        f"rows_of of each topk_row; launches {launches}")
+    return svc, psvc, ids, launches
+
+
+def windowed_admission(dev, spec, aspec, stream):
+    """(b): the 32-tenant windowed service (1 GiB leaf) with the emb_ids
+    policy on every tenant through ADMIT_EPOCHS epochs of phase 6's
+    stream plus one pending microbatch; then admit of BATCH ids a tenant
+    with n_buckets=5 (the first flushes: kernel 6; each re-scores the
+    heap: kernel 9), and again with gamma=0.8; equal to the plain
+    engine."""
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 10)
+    names = sc.trending_names(WINDOW_TENANTS)
+    ids = admit_ids(rng, WINDOW_TENANTS, lambda t: t * 1_000_000)
+    pending = stream[ADMIT_EPOCHS][1][0]
+
+    def drive(engine: str):
+        svc = sc.build_service(spec, 0, RING, SEED, TRACK_TOP, device=dev,
+                               engine=engine, trending=WINDOW_TENANTS,
+                               admission=aspec)
+        for many, pairs in stream[:ADMIT_EPOCHS]:
+            drive_window_epoch(svc, many, pairs)
+        svc.enqueue_many(*pending)
+        got = {}
+        for kw in ({"n_buckets": 5}, {"gamma": 0.8}):
+            for t, n in enumerate(names):
+                got[(n, *kw)] = svc.admit(n, ids[t], **kw)
+        torch.cuda.synchronize()
+        return svc, got
+
+    ksk.reset_kernel_launches()
+    svc, got = drive("auto")
+    launches = ksk.kernel_launches()
+    psvc, pgot = drive("plain")
+    check_admits(got, pgot, "windowed admission")
+    compare_services(svc, psvc, "windowed admission")
+    missing = [k for k in ("fused_update_rows", "window_query_stacked_rows")
+               if not launches[k]]
+    if missing:
+        fail(f"windowed admission launched none of {missing}: {launches}")
+    share = float(np.mean([float(m.float().mean()) for _, m in got.values()]))
+    log(f"windowed admission: {WINDOW_TENANTS} tenants x {BATCH} ids, "
+        f"n_buckets=5 and gamma=0.8, admitted share {share:.4f}; equal to "
+        f"the plain engine's; launches {launches}")
+    return svc, psvc, ids, launches
+
+
+def admit_no_sync(tsvc, tplain, tids, wsvc, wplain, wids) -> None:
+    """(e): admit on a clean tracked and a clean windowed plane under
+    torch.cuda.set_sync_debug_mode("error"), equal to the plain engine."""
+    t, w = TENANTS - 1, WINDOW_TENANTS - 1
+    calls = [("tenant_00", tsvc, tplain, tids[0], {}),
+             (f"tenant_{t:02d}", tsvc, tplain, tids[t], {}),
+             ("trending_00", wsvc, wplain, wids[0], {"n_buckets": 5}),
+             (f"trending_{w:02d}", wsvc, wplain, wids[w], {"gamma": 0.8}),
+             ("trending_01", wsvc, wplain, wids[1], {})]
+    for name, s, _, _, _ in calls:
+        if s._lookup(name)[0].pending():
+            fail(f"sync-free admit: {name}'s plane has pending events")
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    got, name = {}, None
+    try:
+        for name, s, _, ids, kw in calls:
+            got[name] = s.admit(name, ids, **kw)
+    except RuntimeError as err:
+        fail(f"admit({name}) synchronized under set_sync_debug_mode"
+             f"('error'): {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    want = {name: p.admit(name, ids, **kw) for name, _, p, ids, kw in calls}
+    check_admits(got, want, "sync-free admit")
+    log("sync-free admit: tracked and windowed (full window, n_buckets=5, "
+        "gamma=0.8) on clean planes under set_sync_debug_mode('error'), no "
+        "error; equal to the plain engine's")
+
+
+def observe_and_admit_check(dev, spec, aspec):
+    """(c): observe_and_admit on one 4 MiB CMLS16 table and 65,536 Zipf
+    ids, engine "kernel" (kernels 5 and 1) against "xla"."""
+    from repro_torch.core import admission as adm
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import signed_view
+    from repro_torch.kernels import sketch as ksk
+    rng = np.random.default_rng(SEED + 11)
+    ids = (rng.zipf(1.3, RING) % 100_000).astype(np.uint32)
+    key = np.asarray([SEED, 99], np.uint32)
+    out = {}
+    launches = None
+    for engine in ("kernel", "xla"):
+        if engine == "kernel":
+            ksk.reset_kernel_launches()
+        out[engine] = adm.observe_and_admit(sk.init(spec, dev), ids, key,
+                                            aspec, engine=engine)
+        torch.cuda.synchronize()
+        if engine == "kernel":
+            launches = ksk.kernel_launches()
+    (sa, ra, ma), (sb, rb, mb) = out["kernel"], out["xla"]
+    if not (torch.equal(signed_view(sa.table), signed_view(sb.table))
+            and torch.equal(ra, rb) and torch.equal(ma, mb)):
+        fail("observe_and_admit: engine 'kernel' differs from 'xla' "
+             f"({int((signed_view(sa.table) != signed_view(sb.table)).sum())}"
+             f" cells, {int((ma != mb).sum())} decisions)")
+    if launches["fused_update"] != 1 or launches["fused_query"] != 1:
+        fail(f"observe_and_admit 'kernel' launches {launches}")
+    log(f"observe_and_admit: {RING} ids on one {spec.memory_bytes} B table, "
+        f"engine 'kernel' equals 'xla' (table, rows, mask; "
+        f"{int(ma.sum())} admitted); launches {launches}")
+    return launches
+
+
+def snapshot_restore(dev, svc, what: str, more, probes, topk_names,
+                     query=None) -> dict:
+    """(d) for one full-size service with pending ring events: snapshot
+    into a temporary directory, restore into a fresh service (every leaf
+    equal byte for byte), then query_all and topk equal and, after the
+    same `more()` traffic and a flush on both, equal leaves (the PRNG
+    lanes carried over); restore with packed=True (query_all
+    bit-identical) and with track_top 32 and 128 (the trackers are
+    `resize_stacked` of the saved ones).  Returns times, sizes and the
+    kernel launches of the restored services' reads and flushes."""
+    import tempfile
+    from repro_torch.core import topk
+    from repro_torch.core.counters import from_numpy
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.stream import CountService
+    if not svc.dirty_planes:
+        fail(f"{what} snapshot: no pending ring events")
+    saved = flat_leaves(svc)
+    nbytes = sum(a.nbytes for a in saved.values())
+    out = {"bytes": nbytes}
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.snapshot(root, step=1)
+        out["snapshot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = CountService.restore(root, device=dev)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        compare_leaves(saved, flat_leaves(back), f"{what} restore")
+        if back._meta() != svc._meta():
+            fail(f"{what} restore: the manifest metadata differs")
+        want = svc.query_all(probes)
+        tops = {n: svc.topk(n) for n in topk_names}
+        one = None if query is None else svc.query(*query)
+        torch.cuda.synchronize()
+        # the restored service's reads and its next flush, counted alone
+        ksk.reset_kernel_launches()
+        got = back.query_all(probes)
+        reads = {n: back.topk(n) for n in topk_names}
+        got_one = None if query is None else back.query(*query)
+        more(back)
+        back.flush()
+        torch.cuda.synchronize()
+        launches = ksk.kernel_launches()
+        more(svc)
+        svc.flush()
+        for n in want:
+            if not torch.equal(want[n], got[n]):
+                fail(f"{what} restore: query_all[{n}] differs")
+        for n in topk_names:
+            a, b = tops[n], reads[n]
+            if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+                fail(f"{what} restore: topk({n}) differs")
+        if query is not None and not torch.equal(one, got_one):
+            fail(f"{what} restore: query{query[:1]} differs")
+        compare_leaves(flat_leaves(svc), flat_leaves(back),
+                       f"{what} restore, after the next flush")
+        del back
+        packed = CountService.restore(root, device=dev, packed=True)
+        if not packed.spec_of(topk_names[0]).packed:
+            fail(f"{what} restore(packed=True) is not packed")
+        got = packed.query_all(probes)
+        for n in want:
+            if not torch.equal(want[n], got[n]):
+                fail(f"{what} restore(packed=True): query_all[{n}] differs")
+        del packed
+        for k in (TRACK_TOP // 2, TRACK_TOP * 2):
+            re = CountService.restore(root, device=dev, track_top=k)
+            for i, p in enumerate(re.planes):
+                pre = f"{'windows' if i >= len(re._planes) else 'planes'}/" \
+                      f"{i if i < len(re._planes) else i - len(re._planes)}"
+                tk = topk.TopK(
+                    keys=from_numpy(saved[pre + "/topk/keys"], dev),
+                    estimates=from_numpy(saved[pre + "/topk/estimates"], dev),
+                    filled=from_numpy(saved[pre + "/topk/filled"], dev))
+                want_tk = topk.resize_stacked(tk, k)
+                if not (torch.equal(p.tracker.keys.view(torch.int32),
+                                    want_tk.keys.view(torch.int32))
+                        and torch.equal(p.tracker.estimates,
+                                        want_tk.estimates)
+                        and torch.equal(p.tracker.filled, want_tk.filled)
+                        and p.tracker.keys.shape[1] == k):
+                    fail(f"{what} restore(track_top={k}): plane {i}'s "
+                         "tracker is not resize_stacked of the saved one")
+            del re
+    out["snapshot_gib_s"] = nbytes / out["snapshot_s"] / 2**30
+    out["restore_gib_s"] = nbytes / out["restore_s"] / 2**30
+    log(f"{what} snapshot/restore: {nbytes} B of leaves; snapshot "
+        f"{out['snapshot_s']:.3f} s ({out['snapshot_gib_s']:.3f} GiB/s), "
+        f"restore {out['restore_s']:.3f} s ({out['restore_gib_s']:.3f} "
+        "GiB/s); every leaf equal, query_all / topk equal, equal after the "
+        "next flush; packed=True answers bit-identical; track_top "
+        f"{TRACK_TOP // 2} and {TRACK_TOP * 2} give resize_stacked; launches "
+        f"of the restored service's reads and flush {launches}")
+    out["launches"] = launches
+    return out
+
+
+def admit_latency(svc, names, ids, kw) -> dict:
+    """p50 / p95 ms of `admit` on a clean plane (after 5 warm-up calls):
+    host clock around one call that ends in torch.cuda.synchronize()."""
+    out = []
+    for i in range(ADMIT_CALLS + 5):
+        t = i % len(names)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.admit(names[t], ids[t], **kw)
+        torch.cuda.synchronize()
+        if i >= 5:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return {"n": len(out), "p50": float(np.percentile(out, 50)),
+            "p95": float(np.percentile(out, 95))}
+
+
+def admission_phase(dev, spec, stream):
+    """Phase 9: admission and snapshot/restore at full size.  Returns
+    (kernel launches summed over its paths, the numbers it reports, the
+    drives of one tracked and one windowed admit for phase 10's
+    profile)."""
+    from repro_torch.launch import serve_counts as sc
+    aspec = sc.EMB_IDS
+    tsvc, tplain, tids, l_a = tracked_admission(dev, spec, aspec)
+    wsvc, wplain, wids, l_b = windowed_admission(dev, spec, aspec, stream)
+    admit_no_sync(tsvc, tplain, tids, wsvc, wplain, wids)
+    del tplain, wplain
+    l_c = observe_and_admit_check(dev, spec, aspec)
+    tnames = [f"tenant_{t:02d}" for t in range(TENANTS)]
+    wnames = sc.trending_names(WINDOW_TENANTS)
+    res = {"admit_ms_tracked": admit_latency(tsvc, tnames, tids, {}),
+           "admit_ms_windowed": admit_latency(wsvc, wnames, wids,
+                                              {"n_buckets": 5})}
+    log(f"admit ms ({BATCH} ids, clean plane, host clock to "
+        f"synchronize, {ADMIT_CALLS} calls): tracked "
+        f"{res['admit_ms_tracked']}, windowed n_buckets=5 "
+        f"{res['admit_ms_windowed']}")
+
+    rng = np.random.default_rng(SEED + 12)
+    tmore, _ = sc.make_epoch(rng, TENANTS, 2, BATCH)
+    tsvc.enqueue_many(tmore[0])  # pending at the snapshot
+    res["tracked"] = snapshot_restore(
+        dev, tsvc, "tracked", lambda s: s.enqueue_many(tmore[1]),
+        sc.probes_for(TENANTS, PROBES)[0], tnames[:4] + ["metrics_qps"])
+    nxt = stream[ADMIT_EPOCHS][1]
+    wsvc.enqueue_many(*nxt[1])  # pending at the snapshot
+    res["windowed"] = snapshot_restore(
+        dev, wsvc, "windowed", lambda s: s.enqueue_many(*nxt[2]),
+        sc.probes_for(0, PROBES, WINDOW_TENANTS)[2],
+        wnames[:4] + ["metrics_qps"],
+        query=("trending_02", sc.probes_for(0, PROBES, WINDOW_TENANTS)[4]))
+    launches = {k: l_a[k] + l_b[k] + l_c[k] + res["tracked"]["launches"][k]
+                + res["windowed"]["launches"][k] for k in l_a}
+    restored = {k: res["tracked"]["launches"][k]
+                + res["windowed"]["launches"][k] for k in l_a}
+    missing = [k for k in ("fused_query", "fused_update_score",
+                           "queue_append_dense", "fused_update_rows",
+                           "window_query", "window_query_stacked",
+                           "window_query_stacked_rows") if not restored[k]]
+    if missing:
+        fail(f"the restored services launched none of {missing}")
+    log(f"peak device memory after phase 9 "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    drives = (lambda: tsvc.admit("tenant_01", tids[1]),
+              lambda: wsvc.admit("trending_02", wids[2], n_buckets=5))
+    return launches, res, drives
 
 
 def main(device: str = "cuda") -> None:
@@ -1985,7 +2377,11 @@ def main(device: str = "cuda") -> None:
     flush_launches = check_flush_no_sync(dev, spec)
     read_launches = check_read_no_sync(dev, wsvc)
 
-    # ---- 9. profiles ---------------------------------------------------------
+    # ---- 9. admission and snapshot/restore ----------------------------------
+    adm_launches, adm_report, admit_drives = admission_phase(dev, spec,
+                                                             stream)
+
+    # ---- 10. profiles -------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
     # slower (the append wrappers' host time below, before and after), so
     # every event and host-clock time above is taken before the first one.
@@ -2007,6 +2403,15 @@ def main(device: str = "cuda") -> None:
                 f"ms for its {floor[1]} distinct words (one index kernel, "
                 f"random order), kernel alone "
                 f"{report[name]['kernel_alone_ms']:.5f} ms")
+    for what, drive in zip(("tracked", "windowed"), admit_drives):
+        prof = profile_epoch(drive)
+        adm_report[f"profile_admit_{what}"] = prof
+        log(f"one {what} admit of {BATCH} ids on a clean plane under "
+            f"torch.profiler: wall {prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_busy_ms']:.3f} ms, runtime calls "
+            f"{prof['runtime_calls']}, host-to-device copies "
+            f"{prof['host_to_device_copies']}; device top "
+            f"{[(r['name'][:40], r['count']) for r in prof['device_top']]}")
     for what, prof in (("tracked", profile),
                        ("windowed", e2e2["profile_window_epoch"])):
         log(f"one {what} epoch under torch.profiler: wall "
@@ -2041,7 +2446,8 @@ def main(device: str = "cuda") -> None:
         t_ops = rep["ops"] / FP32_OPS_PER_S * 1e3
         launches = (main_launches[name] + win_launches[name]
                     + flat_launches[name] + sync_launches[name]
-                    + flush_launches[name] + read_launches[name])
+                    + flush_launches[name] + read_launches[name]
+                    + adm_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -2050,10 +2456,11 @@ def main(device: str = "cuda") -> None:
             f"library {rep['library_ms']}, bound {max(t_bytes, t_ops):.5f} "
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
-            f"flushes / sync-free reads {main_launches[name]} / "
-            f"{win_launches[name]} / {flat_launches[name]} / "
-            f"{sync_launches[name]} / {flush_launches[name]} / "
-            f"{read_launches[name]}")
+            f"flushes / sync-free reads / admission and snapshots "
+            f"{main_launches[name]} / {win_launches[name]} / "
+            f"{flat_launches[name]} / {sync_launches[name]} / "
+            f"{flush_launches[name]} / {read_launches[name]} / "
+            f"{adm_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2068,7 +2475,8 @@ def main(device: str = "cuda") -> None:
         "ingest_events_per_s": rates, "ingest_events_per_s_plain": prates,
         "query_all_ms": qlat, "query_all_ms_plain": pqlat,
         "append_host_us": append_host},
-        "profile_epoch": profile, "window_path": e2e2}), flush=True)
+        "profile_epoch": profile, "window_path": e2e2,
+        "admission": adm_report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

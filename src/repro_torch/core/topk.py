@@ -4,7 +4,8 @@ Counterpart of `repro/core/topk.py`.  A fixed-size (T, K) candidate
 buffer of (key, estimate) pairs per tenant is refreshed with each flush:
 the standing heap joins the flushed batch (`candidates`), every
 candidate is scored against the updated table, and the union is
-re-selected (`reselect`).
+re-selected (`reselect`).  `resize_stacked` re-arms a heap stack at
+another width (restore with a changed track_top).
 
 Slot occupancy is an explicit `filled` mask, not a sentinel key: every
 uint32 value, 0xFFFFFFFF included, is a trackable key, and unfilled
@@ -95,3 +96,29 @@ def refresh_stacked(tracker: TopK, batch_keys: torch.Tensor,
     maps (T, K+N) candidate keys -> (T, K+N) float32 estimates."""
     cand, valid = candidates(tracker, batch_keys, batch_valid)
     return reselect(cand, valid, score_fn(cand), tracker.keys.shape[1])
+
+
+def resize_stacked(tracker: TopK, k: int) -> TopK:
+    """Re-arm a (T, K) heap stack at width k.
+
+    Shrinking keeps each row's best k candidates by stored estimate
+    (unfilled slots count as -inf; ties keep the lower slot first, as
+    `jax.lax.top_k` does); growing keeps every standing candidate and
+    appends cold slots."""
+    t, old = tracker.keys.shape
+    if k == old:
+        return tracker
+    if k > old:
+        pad = init_stacked(t, k - old, tracker.keys.device)
+        return TopK(
+            keys=torch.cat([signed_view(tracker.keys), signed_view(pad.keys)],
+                           dim=1).view(torch.uint32),
+            estimates=torch.cat([tracker.estimates, pad.estimates], dim=1),
+            filled=torch.cat([tracker.filled, pad.filled], dim=1))
+    est = torch.where(tracker.filled, tracker.estimates,
+                      torch.full_like(tracker.estimates, -torch.inf))
+    top_est, idx = torch.sort(est, dim=1, descending=True, stable=True)
+    top_est, idx = top_est[:, :k].contiguous(), idx[:, :k]
+    keys = torch.gather(signed_view(tracker.keys), 1, idx)
+    return TopK(keys=keys.view(torch.uint32), estimates=top_est,
+                filled=top_est > -torch.inf)

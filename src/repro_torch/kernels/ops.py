@@ -269,15 +269,27 @@ def _uniform_grid(tables: torch.Tensor, rows: np.ndarray, uniform_rows):
 
 
 def update(sketch: sk.Sketch, keys, rng, engine: str = "auto") -> sk.Sketch:
-    """Batched conservative update of one sketch (dedup, uniforms from the
-    raw key `rng`, CHUNK-sequential update: the T = 1 dense kernel); past
-    the one-shot limit the reference's one-shot `update_batched`.
-    Returns a new Sketch; the input's table is left as it was."""
+    """Batched conservative update of one sketch: `update_chunked` within
+    the one-shot limit, past it the reference's one-shot
+    `update_batched`.  Returns a new Sketch; the input's table is left as
+    it was."""
+    if not _one_shot(sketch.spec):
+        return update_chunked(sketch, keys, rng, engine)
     _check_engine(engine)
     _launch("update")
     keys = as_device_keys(keys, sketch.table.device).reshape(-1)
-    if _one_shot(sketch.spec):
-        return sk.update_batched(sketch, keys, rng)
+    return sk.update_batched(sketch, keys, rng)
+
+
+def update_chunked(sketch: sk.Sketch, keys, rng, engine: str = "auto"
+                   ) -> sk.Sketch:
+    """Dedup, uniforms from the raw key `rng`, and the CHUNK-sequential
+    update (the T = 1 dense kernel), at every table size: the algorithm
+    `update_xla` computes.  Returns a new Sketch; the input's table is
+    left as it was."""
+    _check_engine(engine)
+    _launch("update")
+    keys = as_device_keys(keys, sketch.table.device).reshape(-1)
     tables = sketch.table.clone()[None]
     weights = _weights(keys, None)[None]
     _update_chunked(tables, sketch.spec, keys[None], weights, rng,

@@ -22,15 +22,22 @@ the device-resident ingest rings.  Each flush epoch of the stream is
     which flushes the plane on queue pressure once the ring is full;
 
 then `flush`, `query_all` over per-tenant probes, `query` and `topk`, and
-the windowed reads (last 5 buckets, gamma-decayed, `topk`).  Every
-tracked flush epoch is one fused update + score dispatch per fill class.
-The run prints span and dispatch summaries off the metrics registry.
+the windowed reads (last 5 buckets, gamma-decayed, `topk`).  With
+tracking on, the reference launcher's admission tenant `emb_ids`
+(`AdmissionSpec(threshold=64, n_fallback=1024, table_rows=65,536)`) takes
+a Zipf microbatch in every `enqueue_many` and then `admit`s 32 probe ids
+from its tracker, and the whole service goes through a snapshot/restore
+round trip (a temporary directory) whose reads must equal the original's.
+Every tracked flush epoch is one fused update + score dispatch per fill
+class.  The run prints span and dispatch summaries off the metrics
+registry.
 
 Runs on CUDA by default; `--device cpu` runs the plain versions.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import numpy as np
@@ -38,10 +45,13 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import CMLS16, CMS32, SketchSpec
+from repro_torch.core.admission import AdmissionSpec
 from repro_torch.stream import CountService, WindowPlane, WindowSpec
 
-LATER_SLICES = ("not yet in the port (later slices): the admission tenant "
-                "'emb_ids', snapshot/restore and the accuracy probe")
+LATER_SLICES = "not yet in the port (a later slice): the accuracy probe"
+
+# the reference launcher's tracker-fed admission tenant
+EMB_IDS = AdmissionSpec(threshold=64.0, n_fallback=1024, table_rows=1 << 16)
 
 BUCKETS = 8
 INTERVAL = 60.0     # seconds of event time per window bucket
@@ -55,20 +65,23 @@ def trending_names(n: int) -> list[str]:
 def build_service(spec: SketchSpec, tenants: int, queue_capacity: int,
                   seed: int, track_top, device=None,
                   engine: str = "auto", metrics=None, tracer=None,
-                  trending: int = 0) -> CountService:
+                  trending: int = 0, admission=None) -> CountService:
     """The launcher's service: `tenants` tenants on `spec`, the CMS32
     metrics plane exactly as the reference launcher builds it, then
-    `trending` windowed tenants (WindowSpec(spec, 8 buckets, 60 s))."""
-    names = [f"tenant_{t:02d}" for t in range(tenants)]
-    svc = CountService(spec, tenants=names, queue_capacity=queue_capacity,
-                       seed=seed, track_top=track_top, metrics=metrics,
-                       tracer=tracer, device=device, engine=engine)
+    `trending` windowed tenants (WindowSpec(spec, 8 buckets, 60 s)).
+    `admission` (an AdmissionSpec) arms that policy on every tenant but
+    the metrics plane's."""
+    svc = CountService(spec, queue_capacity=queue_capacity, seed=seed,
+                       track_top=track_top, metrics=metrics, tracer=tracer,
+                       device=device, engine=engine)
+    for t in range(tenants):
+        svc.add_tenant(f"tenant_{t:02d}", admission=admission)
     metrics_spec = SketchSpec(width=1024, depth=2, counter=CMS32)
     svc.add_tenant("metrics_qps", spec=metrics_spec)
     svc.add_tenant("metrics_err", spec=metrics_spec)
     wspec = WindowSpec(sketch=spec, buckets=BUCKETS, interval=INTERVAL)
     for name in trending_names(trending):
-        svc.add_tenant(name, window=wspec)
+        svc.add_tenant(name, window=wspec, admission=admission)
     return svc
 
 
@@ -155,11 +168,17 @@ def main(argv=None) -> None:
     svc = build_service(spec, args.tenants, args.queue_cap, args.seed,
                         track_top, device=args.device, metrics=registry,
                         tracer=tracer, trending=args.trending)
+    if track_top:
+        svc.add_tenant("emb_ids", admission=EMB_IDS)
     rng = np.random.default_rng(args.seed)
     epochs, ts = [], 0.0
     for _ in range(args.epochs):
         many, single = make_epoch(rng, args.tenants, args.microbatches,
                                   args.batch)
+        if track_top:
+            for events in many:
+                events["emb_ids"] = (rng.zipf(1.3, args.batch)
+                                     % 10_000).astype(np.uint32)
         trending, ts = make_trending(rng, args.trending, args.microbatches,
                                      args.batch, ts)
         epochs.append((many, single, trending))
@@ -194,6 +213,9 @@ def main(argv=None) -> None:
         print(line)
 
     probes = probes_for(args.tenants, args.probes, args.trending)
+    if track_top:  # emb_ids registered last: its hottest ids
+        probes = np.concatenate([probes, np.arange(
+            args.probes, dtype=np.uint32)[None]])
     counts = svc.query_all(probes)
     for name in ("tenant_00", "tenant_01", "metrics_qps"):
         vals = counts[name].cpu().numpy()[:8]
@@ -220,6 +242,29 @@ def main(argv=None) -> None:
             hot, est = svc.topk(name, 5, n_buckets=5)
             print(f"[serve_counts] {name} top-5 over the last 5 buckets: "
                   f"{[(int(k), round(float(v))) for k, v in zip(hot, est)]}")
+
+    if track_top:
+        ids = np.arange(32, dtype=np.uint32)
+        rows, admitted = svc.admit("emb_ids", ids)
+        print(f"[serve_counts] admission plane: "
+              f"{int(admitted.sum())}/{len(ids)} probe ids admitted to "
+              f"private rows (threshold {EMB_IDS.threshold}, "
+              f"{EMB_IDS.table_rows} private + {EMB_IDS.n_fallback} shared "
+              f"rows); rows of ids 0-3: {rows[:4].tolist()}")
+
+    with tempfile.TemporaryDirectory() as d:
+        svc.snapshot(d, step=1)
+        svc2 = CountService.restore(d, device=svc.device)
+        probe = np.arange(16, dtype=np.uint32)
+        same = all(torch.equal(svc.query(n, probe), svc2.query(n, probe))
+                   for n in svc.tenants)
+        if track_top:
+            same = same and all(
+                torch.equal(x, y) for x, y in zip(svc.admit("emb_ids", ids),
+                                                  svc2.admit("emb_ids", ids)))
+        print(f"[serve_counts] snapshot/restore roundtrip: answers match="
+              f"{same}, tenants={len(svc2.tenants)}, planes="
+              f"{len(svc2.planes)}, stats={svc2.stats}")
 
     summ = tracer.summary()
     print("[serve_counts] spans: " + ", ".join(

@@ -38,42 +38,89 @@ window plane keeps its full-window weights until a cursor moves, and
 `query_all` hands a window plane's shared (N,) probes to the stacked
 query as they are (ring stride 0).
 
+The tracker also feeds the admission plane:
+`add_tenant(admission=AdmissionSpec(...))` + `admit(name, ids)` map raw
+ids to embedding rows, admitting exactly the tracked candidates whose
+estimates clear the threshold (`core/admission.admit_tracked`, an (N, K)
+compare on the device); a windowed tenant re-scores its heap against
+the ring first.  On a clean plane an admit issues no synchronize.
+
+`snapshot` / `restore` write and read the reference's checkpoint
+(`train/checkpoint.py`, manifest v8; either package restores the other's
+files): tables, rings, fills, trackers, window cursors and watermarks,
+the PRNG lanes, the admission policies and the metrics.  `restore`
+reads manifests v1-v8 (v1's host queue replays into the device ring),
+re-packs the storage on load (`packed=`) and re-arms the trackers at
+another width (`track_top=`).
+
 The port updates tables, leaves and rings in place (the reference
-donates them); the results are the same.  Tiering, admission, the
-accuracy probe and snapshots are later slices and raise
+donates them); the results are the same.  Tiering (a tiered manifest
+included) and the accuracy probe are later slices and raise
 `NotImplementedError`.  Entry points run on CUDA unless `device="cpu"`;
 without a GPU a CUDA service raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import admission as adm
 from repro_torch.core import sketch as sk
 from repro_torch.core import staging
 from repro_torch.core import topk
-from repro_torch.core.counters import signed_view, to_numpy, zeros
+from repro_torch.core.counters import (CounterSpec, signed_view, to_numpy,
+                                       zeros)
 from repro_torch.core.sketch import Sketch, SketchSpec
 from repro_torch.kernels import ops
 from repro_torch.stream import tiering
 from repro_torch.stream import window as w
+from repro_torch.train import checkpoint
 
 _as_keys = sk.as_uint32_keys
 
+VERSION = 8  # the checkpoint manifest's schema, as the reference writes it
+
 LATER = {
     "tier": "hot/cold tiering (stream/tiering.py TierSpec) is a later slice",
-    "admission": "tracker-fed admission (core/admission.py) is a later slice",
     "probe": "the accuracy probe (obs/probes.py) is a later slice",
-    "snapshot": "snapshot/restore (train/checkpoint) is a later slice",
 }
 
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"not in this slice of the port: {LATER[what]}")
+
+
+def _spec_meta(spec: SketchSpec) -> dict:
+    c = spec.counter
+    return {"width": spec.width, "depth": spec.depth, "seed": spec.seed,
+            "packed": spec.packed,
+            "counter": {"kind": c.kind, "base": c.base, "bits": c.bits}}
+
+
+def _spec_from_meta(meta: dict) -> SketchSpec:
+    # pre-v6 manifests carry no "packed" flag: their tables were stored
+    # one cell a lane, which is packed=False
+    return SketchSpec(width=meta["width"], depth=meta["depth"],
+                      seed=meta["seed"], packed=meta.get("packed", False),
+                      counter=CounterSpec(**meta["counter"]))
+
+
+def _repack(tables: torch.Tensor, old: SketchSpec, new: SketchSpec
+            ) -> torch.Tensor:
+    """A (T, ..., d, sw) stack converted from `old`'s storage layout to
+    `new`'s, cell for cell, one leading row at a time (the int64 cell
+    states of one row at most are held at once)."""
+    out = zeros(tuple(tables.shape[:-1]) + (new.storage_width,),
+                new.storage_dtype, tables.device)
+    for i in range(tables.shape[0]):
+        signed_view(out)[i] = signed_view(
+            sk.storage_table(sk.logical_table(tables[i], old), new))
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -596,26 +643,40 @@ class WindowPlane(_PlaneBase):
                 engine=self.engine))
         self._scatter_tracker(rows_d, new)
 
-    def topk_row(self, row: int, n_buckets: Optional[int] = None,
-                 mode: str = "sum", gamma: Optional[float] = None,
-                 engine: Optional[str] = None):
-        """(keys, estimates, filled) of one tenant's heap, its standing
-        candidates re-scored against the current ring first (rotation,
-        expiry and `gamma` move window estimates without a flush) with
-        n_buckets / mode / gamma, and the re-ordered heap kept."""
-        rows = np.asarray([row], np.int32)
-        wts = w.window_weights_stacked(self.cursors[rows], self.wspec.buckets,
-                                       n_buckets=n_buckets, gamma=gamma,
-                                       device=self.device)
-        rows_d = self._rows_d(rows)
+    def rescore_inputs(self, row: int, n_buckets: Optional[int] = None,
+                       gamma: Optional[float] = None) -> tuple:
+        """The host inputs of `rescore_row`: the row as a (1,) int64 array
+        and its (1, B) bucket weights under n_buckets / gamma."""
+        rows = np.asarray([row], np.int64)
+        return rows, w.window_weights_host(
+            self.cursors[rows], self.wspec.buckets, n_buckets=n_buckets,
+            gamma=gamma)
+
+    def rescore_row(self, row: int, rows_d: torch.Tensor,
+                    wts_d: torch.Tensor, mode: str = "sum",
+                    engine: Optional[str] = None) -> None:
+        """Re-score one tenant's standing candidates against the current
+        ring (rotation, expiry and `gamma` move window estimates without
+        a flush) and keep the re-ordered heap: ONE row-mapped stacked
+        window query, all on the device.  `rows_d` / `wts_d` are
+        `rescore_inputs` on the device."""
         empty = torch.zeros((1, 0), dtype=torch.int32,
                             device=self.device).view(torch.uint32)
         new = topk.refresh_stacked(
             self._tracker_rows(rows_d), empty, None,
             lambda ck: ops.window_query_stacked(
-                self.tables, self.spec, ck, wts, mode=mode,
-                engine=engine or self.engine, rows=rows))
+                self.tables, self.spec, ck, wts_d, mode=mode,
+                engine=engine or self.engine, rows=[row]))
         self._scatter_tracker(rows_d, new)
+
+    def topk_row(self, row: int, n_buckets: Optional[int] = None,
+                 mode: str = "sum", gamma: Optional[float] = None,
+                 engine: Optional[str] = None):
+        """(keys, estimates, filled) of one tenant's heap as numpy arrays,
+        re-scored first (`rescore_row`) with n_buckets / mode / gamma."""
+        rows_d, wts_d = staging.upload(
+            self.device, *self.rescore_inputs(row, n_buckets, gamma))
+        self.rescore_row(row, rows_d, wts_d, mode, engine)
         tk = self.tracker
         return (to_numpy(tk.keys[row]), tk.estimates[row].cpu().numpy(),
                 tk.filled[row].cpu().numpy())
@@ -661,6 +722,18 @@ class WindowPlane(_PlaneBase):
         return self.tables[row, int(self.cursors[row])]
 
 
+def _rescore_for_admit(plane: "WindowPlane", row: int, ids, n_buckets=None,
+                       mode: str = "sum", gamma=None, engine=None):
+    """A windowed `admit`'s heap re-score.  Validated host ids go up in
+    the re-score's one staged copy; returns the ids on the device."""
+    host = plane.rescore_inputs(row, n_buckets, gamma)
+    if not isinstance(ids, torch.Tensor):
+        host += (ids.view(np.int32),)
+    rows_d, wts_d, *up = staging.upload(plane.device, *host)
+    plane.rescore_row(row, rows_d, wts_d, mode, engine)
+    return up[0].view(torch.uint32) if up else ids
+
+
 class CountService:
     """Registry of named sketches bucketed into fused-ingest planes."""
 
@@ -690,6 +763,7 @@ class CountService:
         self._where: dict[str, tuple[object, int]] = {}
         self._order: list[str] = []
         self._plane_rows: dict = {}  # plane -> its rows of `_order`
+        self._admission: dict[str, adm.AdmissionSpec] = {}
         self.metrics = metrics if metrics is not None else obs.MetricsRegistry()
         self.tracer = tracer if tracer is not None else obs.Tracer()
         self._m_events = self.metrics.counter("events")
@@ -743,16 +817,18 @@ class CountService:
 
     def add_tenant(self, name: str, spec: Optional[SketchSpec] = None,
                    window: Optional[w.WindowSpec] = None,
-                   admission=None) -> int:
+                   admission: Optional[adm.AdmissionSpec] = None) -> int:
         """Register a tenant; returns its row in its plane's table stack.
 
         window: register a watermark-windowed tenant (its ring lives in
         the plane of its WindowSpec; `enqueue(..., ts=...)` drives
-        rotation)."""
-        if admission is not None:
-            raise _later("admission")
+        rotation).  admission: arm the tracker-fed admission plane for
+        this tenant (`admit`); needs the service's `track_top`."""
         if name in self._where:
             raise ValueError(f"tenant {name!r} already registered")
+        if admission is not None and self.track_top is None:
+            raise ValueError("tracker-fed admission needs the heavy-hitter "
+                             "plane: construct the service with track_top=K")
         kw = dict(metrics=self.metrics, tracer=self.tracer,
                   device=self.device, engine=self.engine)
         if window is not None:
@@ -780,7 +856,14 @@ class CountService:
         self._where[name] = (plane, row)
         self._order.append(name)
         self._plane_rows.clear()
+        if admission is not None:
+            self._admission[name] = admission
         return row
+
+    def admission_of(self, name: str) -> Optional[adm.AdmissionSpec]:
+        """The tenant's admission policy (None when admission is off)."""
+        self._lookup(name)
+        return self._admission.get(name)
 
     def _lookup(self, name: str) -> tuple:
         if name not in self._where:
@@ -990,12 +1073,270 @@ class CountService:
         sel = filled[:k]
         return keys[:k][sel], est[:k][sel]
 
-    def admit(self, name: str, ids):
-        raise _later("admission")
+    def admit(self, name: str, ids, **window_kw):
+        """Map raw ids -> embedding rows under the tenant's tracker-fed
+        admission policy: (rows int32, admitted bool) device tensors,
+        aligned with the flattened ids.
+
+        Flushes the tenant's own plane first, so the decisions reflect
+        the current flush epoch's tracker.  A plain tenant decides with
+        no kernel launch (`admission.admit_tracked`: an (N, K) compare
+        against the standing heap); a windowed tenant first re-scores
+        its heap against the current ring (`WindowPlane.rescore_row`,
+        one stacked window-query launch) with `window_kw` (n_buckets /
+        mode / gamma), so an id whose traffic expired out of the window
+        loses its private row.  Host ids are validated like `enqueue`'s
+        keys, once, and go up in one staged copy (a windowed tenant's
+        with its re-score's row and weights): on a clean plane nothing
+        synchronizes.  A torch.uint32 tensor is taken as it is.
+        """
+        plane, row = self._lookup(name)
+        aspec = self._admission.get(name)
+        if aspec is None:
+            raise ValueError(f"tenant {name!r} has no admission policy: "
+                             "register with add_tenant(admission="
+                             "AdmissionSpec(...))")
+        if window_kw and not isinstance(plane, WindowPlane):
+            raise ValueError(f"tenant {name!r} is not windowed; "
+                             f"window args {sorted(window_kw)} do not apply")
+        if isinstance(ids, torch.Tensor) and ids.dtype == torch.uint32:
+            ids = ids.reshape(-1)
+        else:
+            ids = _as_keys(ids)
+        with self._audited(), self.tracer.span("admit", tenant=name) as sp:
+            self._flush_plane(plane)
+            if isinstance(plane, WindowPlane):
+                ids = _rescore_for_admit(plane, row, ids, **window_kw)
+            elif not isinstance(ids, torch.Tensor):
+                ids = ops.read_keys(ids, plane.device)
+            tk = plane.tracker
+            return sp.sync(adm.admit_tracked(tk.keys[row], tk.estimates[row],
+                                             tk.filled[row], ids, aspec))
+
+    # ---- persistence ----
+
+    def _meta(self) -> dict:
+        """The manifest metadata, as the reference writes it (v8
+        untiered: the plane layout, the PRNG lanes, the admission
+        policies (v4), the metrics snapshot (v5) and the packed flag
+        (v6))."""
+        meta = {
+            "version": VERSION,
+            "queue_capacity": self.queue_capacity,
+            "seed": self.seed,
+            "track_top": self.track_top,
+            "tenant_order": self.tenants,
+            "stats": dict(self.stats),
+            "metrics": self.metrics.snapshot(),
+            "admission": {name: dataclasses.asdict(spec)
+                          for name, spec in self._admission.items()},
+            "planes": [{"spec": _spec_meta(p.spec), "tenants": list(p.names),
+                        "rng_draws": p.rng.draws}
+                       for p in self._planes.values()],
+            "windows": [{"sketch": _spec_meta(p.spec),
+                         "buckets": p.wspec.buckets,
+                         "interval": p.wspec.interval,
+                         "tenants": list(p.names), "rng_draws": p.rng.draws}
+                        for p in self._wplanes.values()],
+        }
+        if self.default_spec is not None:
+            meta["spec"] = _spec_meta(self.default_spec)  # v1 reader compat
+            meta["tenants"] = self.tenants
+        return meta
+
+    def _tree(self, with_topk: Optional[bool] = None) -> dict:
+        """Checkpoint leaf tree: per plane `tables` (storage layout), the
+        ring `queue` and its `fill` (int32, as the reference writes it),
+        with tracking `topk.{keys, estimates, filled}`; a window plane's
+        `tables` is its (T, B, d, sw) leaf, beside the `cursor` and
+        `epoch` (-1: no watermark yet) mirrors.  with_topk defaults to
+        whether tracking is on (restore passes the manifest's answer)."""
+        if with_topk is None:
+            with_topk = self.track_top is not None
+
+        def leaf(p) -> dict:
+            out = {"tables": p.tables, "queue": p.ring.queue,
+                   "fill": p.ring.fill.astype(np.int32)}
+            if with_topk:
+                tk = p.tracker
+                out["topk"] = {"keys": tk.keys, "estimates": tk.estimates,
+                               "filled": tk.filled}
+            return out
+
+        windows = [dict(leaf(p), cursor=np.asarray(p.cursors, np.int32),
+                        epoch=np.asarray([-1 if e is None else int(e)
+                                          for e in p.epochs], np.int32))
+                   for p in self._wplanes.values()]
+        return {"planes": [leaf(p) for p in self._planes.values()],
+                "windows": windows}
 
     def snapshot(self, root: str, step: int) -> str:
-        raise _later("snapshot")
+        """Atomic checkpoint of every plane (pending ring events
+        included); returns its directory."""
+        return checkpoint.save(root, step, self._tree(),
+                               metadata=self._meta())
 
     @classmethod
-    def restore(cls, root: str, step: Optional[int] = None, **kw):
-        raise _later("snapshot")
+    def restore(cls, root: str, step: Optional[int] = None,
+                track_top: Optional[int] = None,
+                packed: Optional[bool] = None, device=None,
+                engine: str = "auto") -> "CountService":
+        """Rebuild a service (registry, planes, rings, trackers, lanes,
+        admission policies, metrics) from a snapshot on `device`.
+
+        Reads manifests v8 down to v2 (pre-v6 specs restore as
+        packed=False, pre-v5 with cold metrics: only the events/flushes
+        stats carry over) and the v1 single-plane layout, whose host
+        queue replays into the device ring.  `packed=True/False`
+        converts every plane's storage layout on load, cell for cell, so
+        estimates are bit-identical.  `track_top`: a tracker-less
+        snapshot comes back with cold (T, track_top) heaps; one taken at
+        another width has its heaps resized (`topk.resize_stacked`:
+        shrinking keeps each row's best candidates, growing appends cold
+        slots).  A tiered manifest raises NotImplementedError."""
+        meta, step = checkpoint.load_metadata(root, step)
+        if meta.get("version", 1) < 2:
+            svc = cls._restore_v1(root, step, meta, track_top, device,
+                                  engine)
+        else:
+            svc = cls._from_meta(meta, track_top, device, engine)
+            saved_k = meta.get("track_top")
+            tree, _ = checkpoint.restore(
+                root, svc._tree(with_topk=saved_k is not None), step=step)
+            svc._load_tree(meta, tree)
+            if track_top is not None and saved_k is not None \
+                    and track_top != saved_k:
+                svc._resize_trackers(track_top)
+        if packed is not None:
+            svc._convert_packing(packed)
+        return svc
+
+    @classmethod
+    def _from_meta(cls, meta: dict, track_top: Optional[int], device,
+                   engine: str) -> "CountService":
+        """An empty service with the registry `meta` (v2+) describes: its
+        planes in their saved order, the tenants with their admission
+        policies; trackers at the saved width, or at `track_top` when
+        the snapshot had none."""
+        if "tier" in meta or any(
+                "tier" in pm
+                for pm in meta["planes"] + meta.get("windows", [])):
+            raise _later("tier")
+        default = _spec_from_meta(meta["spec"]) if "spec" in meta else None
+        saved_k = meta.get("track_top")
+        svc = cls(default, queue_capacity=meta["queue_capacity"],
+                  seed=meta.get("seed", 0),
+                  track_top=saved_k if saved_k is not None else track_top,
+                  device=device, engine=engine)
+        admission_of = {name: adm.AdmissionSpec(**spec)
+                        for name, spec in meta.get("admission", {}).items()}
+        plane_of: dict[str, dict] = {}
+        for pm in meta["planes"]:
+            plane_of.update({n: {"spec": _spec_from_meta(pm["spec"])}
+                             for n in pm["tenants"]})
+        for wm in meta.get("windows", []):
+            wspec = w.WindowSpec(sketch=_spec_from_meta(wm["sketch"]),
+                                 buckets=wm["buckets"],
+                                 interval=wm["interval"])
+            plane_of.update({n: {"window": wspec} for n in wm["tenants"]})
+        for name in meta["tenant_order"]:
+            svc.add_tenant(name, admission=admission_of.get(name),
+                           **plane_of[name])
+        return svc
+
+    def _load_tree(self, meta: dict, tree: dict) -> None:
+        """Land a restored leaf tree (tensors on this service's device,
+        host mirrors as numpy) and the manifest's lanes, stats and
+        metrics into the planes `_from_meta` built."""
+        has_topk = meta.get("track_top") is not None
+        for p, pm, leaves in zip(self._planes.values(), meta["planes"],
+                                 tree["planes"]):
+            self._restore_plane_leaves(p, pm, leaves, has_topk)
+        for p, wm, leaves in zip(self._wplanes.values(),
+                                 meta.get("windows", []),
+                                 tree.get("windows", [])):
+            self._restore_plane_leaves(p, wm, leaves, has_topk)
+            p.cursors = np.asarray(leaves["cursor"], np.int32).copy()
+            p.epochs = [None if e < 0 else int(e)
+                        for e in np.asarray(leaves["epoch"]).tolist()]
+        self.stats = dict(meta.get("stats", self.stats))
+        if "metrics" in meta:
+            self.metrics.load(meta["metrics"])
+
+    @staticmethod
+    def _restore_plane_leaves(p, pm: dict, leaves: dict,
+                              has_topk: bool) -> None:
+        if list(p.names) != list(pm["tenants"]):
+            raise ValueError(f"plane tenant order {p.names} differs from "
+                             f"the manifest's {pm['tenants']}")
+        tables = leaves["tables"]
+        if tables.dtype != p.tables.dtype:
+            raise ValueError(f"tables leaf of dtype {tables.dtype} does not "
+                             f"match the plane's storage {p.tables.dtype}")
+        p.rng.draws = int(pm.get("rng_draws", 0))
+        p.tables = tables
+        p.ring.queue = leaves["queue"]
+        p.ring.fill = np.asarray(leaves["fill"], np.int64).copy()
+        if has_topk:
+            p.tracker = topk.TopK(**leaves["topk"])
+
+    def _convert_packing(self, packed: bool) -> None:
+        """Switch every plane's table storage layout in place
+        (repack-on-load), cell for cell: estimates are bit-identical.
+        Registry keys, the default spec and the window specs follow."""
+        if self.default_spec is not None:
+            self.default_spec = dataclasses.replace(self.default_spec,
+                                                    packed=packed)
+        planes: dict[SketchSpec, TenantPlane] = {}
+        for spec, p in self._planes.items():
+            new = dataclasses.replace(spec, packed=packed)
+            if new != spec:
+                p.tables = _repack(p.tables, spec, new)
+                p.spec = new
+            planes[new] = p
+        self._planes = planes
+        wplanes: dict[w.WindowSpec, WindowPlane] = {}
+        for wspec, p in self._wplanes.items():
+            new_sk = dataclasses.replace(wspec.sketch, packed=packed)
+            if new_sk != wspec.sketch:
+                p.tables = _repack(p.tables, wspec.sketch, new_sk)
+                p.wspec = dataclasses.replace(wspec, sketch=new_sk)
+            wplanes[p.wspec] = p
+        self._wplanes = wplanes
+
+    def _resize_trackers(self, k: int) -> None:
+        """Re-arm every plane's heap stack at width k."""
+        self.track_top = int(k)
+        for plane in self.planes:
+            plane.track_top = self.track_top
+            if plane.tracker is not None:
+                plane.tracker = topk.resize_stacked(plane.tracker,
+                                                    self.track_top)
+
+    @classmethod
+    def _restore_v1(cls, root: str, step: int, meta: dict,
+                    track_top: Optional[int], device, engine: str
+                    ) -> "CountService":
+        """The pre-plane (single-spec, host-queue) layout: load the
+        stacked tables, replay the saved host queue into the device ring
+        (one append a tenant with events).  Trackers, if re-armed, start
+        cold; the v1 split-chain PRNG leaf has no lane equivalent, so the
+        plane restarts its lane."""
+        spec = _spec_from_meta(meta["spec"])
+        svc = cls(spec, tenants=meta["tenants"],
+                  queue_capacity=meta["queue_capacity"],
+                  track_top=track_top, device=device, engine=engine)
+        plane = next(iter(svc._planes.values()))
+        t = len(meta["tenants"])
+        target = {"tables": plane.tables,
+                  "queue": checkpoint.Leaf((t, meta["queue_capacity"]),
+                                           np.uint32),
+                  "fill": checkpoint.Leaf((t,), np.int64)}
+        tree, _ = checkpoint.restore(root, target, step=step)
+        plane.tables = tree["tables"]
+        queue = np.asarray(tree["queue"], np.uint32)
+        fill = np.asarray(tree["fill"], np.int64)
+        for r in np.flatnonzero(fill):
+            plane.ring.append([r], [queue[r, :fill[r]]])
+        svc.stats = dict(meta.get("stats", svc.stats))
+        return svc

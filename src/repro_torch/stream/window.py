@@ -102,15 +102,12 @@ def window_advance_steps(win: WindowedSketch, steps: int) -> WindowedSketch:
                                cursor=(win.cursor + steps) % b, epoch=epoch)
 
 
-def window_weights_stacked(cursors, buckets: int,
-                           n_buckets: int | None = None,
-                           gamma: float | None = None,
-                           device="cpu") -> torch.Tensor:
+def window_weights_host(cursors, buckets: int,
+                        n_buckets: int | None = None,
+                        gamma: float | None = None) -> np.ndarray:
     """(R, B) float32 per-bucket estimate weights for R rings of one
-    geometry: 0 past the last `n_buckets` intervals, else 1, or
-    gamma^age with lazy decay.  Computed on the host (one evaluation for
-    every ring) and placed on `device` without a synchronize
-    (`core/staging.py`)."""
+    geometry, on the host: 0 past the last `n_buckets` intervals, else 1,
+    or gamma^age with lazy decay (one evaluation for every ring)."""
     k = buckets if n_buckets is None else n_buckets
     if not 1 <= k <= buckets:
         raise ValueError(f"window of {k} buckets outside ring of {buckets}")
@@ -123,7 +120,17 @@ def window_weights_stacked(cursors, buckets: int,
             raise ValueError("gamma must be in (0, 1]")
         live = live * torch.pow(torch.tensor(f32(gamma)),
                                 ages.to(torch.float32))
-    return staging.upload(device, live.numpy())[0]
+    return live.numpy()
+
+
+def window_weights_stacked(cursors, buckets: int,
+                           n_buckets: int | None = None,
+                           gamma: float | None = None,
+                           device="cpu") -> torch.Tensor:
+    """`window_weights_host` placed on `device` without a synchronize
+    (`core/staging.py`)."""
+    return staging.upload(device, window_weights_host(
+        cursors, buckets, n_buckets, gamma))[0]
 
 
 def window_weights(win: WindowedSketch, n_buckets: int | None = None,

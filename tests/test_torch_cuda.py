@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.core import admission as tadm
 from repro_torch.core import counters as tc
 from repro_torch.core import prng
 from repro_torch.core import sketch as tsk
@@ -837,3 +838,191 @@ def test_window_and_untracked_services_auto_equal_plain(cuda):
     assert all(np.array_equal(x, y) for x, y in zip(ra[2], rp[2]))
     for n in ra[3]:
         assert torch.equal(ra[3][n], rp[3][n])
+
+
+# --------------------------------------------------------------------------
+# admission and snapshots on the card
+# --------------------------------------------------------------------------
+
+ASPEC = tadm.AdmissionSpec(threshold=6.0, n_fallback=64, table_rows=4096)
+
+
+def _admission_services(device, engine, name="CMLS16"):
+    """A tracked plane and a windowed plane of `name` counters, every
+    tenant with ASPEC, driven through three epochs that rotate the rings;
+    events of the last epoch left pending."""
+    spec = _spec(name, False)
+    wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+    svc = CountService(spec, queue_capacity=4096, track_top=8, device=device,
+                       engine=engine)
+    names, wnames = [f"t{i}" for i in range(4)], ["x", "y", "z"]
+    for n in names:
+        svc.add_tenant(n, admission=ASPEC)
+    svc.add_tenant("m", spec=_spec("CMS32", False))
+    for n in wnames:
+        svc.add_tenant(n, window=wspec, admission=ASPEC)
+    rng = np.random.default_rng(9)
+    for ts in (10.0, 75.0, 200.0):
+        svc.enqueue_many({n: (rng.zipf(1.3, 700) % 3000).astype(np.uint32)
+                          for n in names + ["m"]})
+        svc.enqueue_many({n: (rng.zipf(1.3, 500) % 3000).astype(np.uint32)
+                          for n in wnames}, ts=ts)
+    return svc, names, wnames
+
+
+ADMIT_IDS = np.concatenate([np.arange(200), [0xFFFF_FFFF]]).astype(np.uint32)
+ADMITS = [("t0", {}), ("t3", {}), ("x", {}), ("y", {"n_buckets": 2}),
+          ("z", {"gamma": 0.8}), ("x", {"mode": "max"})]
+
+
+@pytest.mark.cuda
+def test_admit_tracked_and_windowed_equal_plain(cuda):
+    """`admit` on the kernels equals the plain engine on the card: the
+    tracked admit's flush (kernel 2), the windowed admit's flush (kernel
+    6) and re-score (kernel 9), n_buckets / gamma / max included."""
+    out = []
+    for engine in ("auto", "plain"):
+        svc, _, _ = _admission_services(cuda, engine)
+        ksk.reset_kernel_launches()
+        got = [svc.admit(n, ADMIT_IDS, **kw) for n, kw in ADMITS]
+        torch.cuda.synchronize()
+        if engine == "auto":
+            launches = ksk.kernel_launches()
+            for k in ("fused_update_score", "fused_update_rows",
+                      "window_query_stacked_rows"):
+                assert launches[k] > 0, launches
+        out.append((svc, got))
+    (a, ga), (b, gb) = out
+    for (ra, ma), (rb, mb) in zip(ga, gb):
+        assert ra.device.type == cuda.type and ra.dtype == torch.int32
+        assert torch.equal(ra, rb) and torch.equal(ma, mb)
+    assert any(bool(m.any()) for _, m in ga)
+    for pa, pb in zip(a.planes, b.planes):
+        assert torch.equal(pa.tracker.estimates, pb.tracker.estimates)
+        assert torch.equal(signed_view(pa.tracker.keys),
+                           signed_view(pb.tracker.keys))
+
+
+@pytest.mark.cuda
+def test_observe_and_admit_kernel_equals_xla(cuda):
+    spec = _spec("CMLS16", False, width=4096, depth=3)
+    ids = np.random.default_rng(2).integers(0, 8000, 12000).astype(np.uint32)
+    assert len(np.unique(ids)) > 1024  # several update chunks
+    key = np.asarray([0, 4], np.uint32)
+    out = {}
+    for engine in ("kernel", "xla", "auto"):
+        ksk.reset_kernel_launches()
+        s, rows, mask = tadm.observe_and_admit(tsk.init(spec, cuda), ids, key,
+                                               ASPEC, engine=engine)
+        torch.cuda.synchronize()
+        launches = ksk.kernel_launches()
+        on_kernels = launches["fused_update"] == launches["fused_query"] == 1
+        assert on_kernels == (engine != "xla"), (engine, launches)
+        out[engine] = (s.table, rows, mask)
+    for engine in ("xla", "auto"):
+        assert torch.equal(signed_view(out["kernel"][0]),
+                           signed_view(out[engine][0]))
+        assert torch.equal(out["kernel"][1], out[engine][1])
+        assert torch.equal(out["kernel"][2], out[engine][2])
+    assert bool(out["kernel"][2].any())
+    with pytest.raises(ValueError, match="CUDA"):
+        tadm.observe_and_admit(tsk.init(spec, "cpu"), ids, key, ASPEC,
+                               engine="kernel")
+
+
+@pytest.mark.cuda
+def test_observe_and_admit_auto_runs_kernels_past_one_shot_size(cuda):
+    """A 16 MiB table, past `ops.ONE_SHOT_UPDATE_TABLE_BYTES`: "auto"
+    still launches the update and query kernels and equals "xla"."""
+    spec = _spec("CMS32", False, width=1 << 21, depth=2)
+    assert spec.memory_bytes > ops.ONE_SHOT_UPDATE_TABLE_BYTES
+    ids = (np.random.default_rng(5).zipf(1.3, 12000) % 8000).astype(
+        np.uint32)
+    key = np.asarray([0, 6], np.uint32)
+    out = {}
+    for engine in ("auto", "xla"):
+        ksk.reset_kernel_launches()
+        out[engine] = tadm.observe_and_admit(tsk.init(spec, cuda), ids, key,
+                                             ASPEC, engine=engine)
+        torch.cuda.synchronize()
+        launches = ksk.kernel_launches()
+        on_kernels = launches["fused_update"] == launches["fused_query"] == 1
+        assert on_kernels == (engine == "auto"), (engine, launches)
+    (sa, ra, ma), (sx, rx, mx) = out["auto"], out["xla"]
+    assert torch.equal(signed_view(sa.table), signed_view(sx.table))
+    assert torch.equal(ra, rx) and torch.equal(ma, mx)
+    assert bool(ma.any())
+
+
+@pytest.mark.cuda
+def test_admit_on_a_clean_plane_does_not_synchronize(cuda):
+    """`admit` on clean tracked and windowed planes runs under
+    torch.cuda.set_sync_debug_mode("error"), equal to the plain engine."""
+    out = []
+    for engine in ("auto", "plain"):
+        svc, _, _ = _admission_services(cuda, engine)
+        svc.flush()
+        on_card = tc.from_numpy(ADMIT_IDS, cuda)  # ids already on the card
+        torch.cuda.synchronize()
+        before = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [svc.admit(n, ADMIT_IDS, **kw) for n, kw in ADMITS]
+            got += [svc.admit("t1", on_card), svc.admit("y", on_card)]
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
+        out.append(got)
+    for (ra, ma), (rb, mb) in zip(*out):
+        assert torch.equal(ra, rb) and torch.equal(ma, mb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["CMS32", "CMLS16"])
+def test_snapshot_on_the_card_restores_on_the_card_and_the_cpu(cuda,
+                                                                tmp_path,
+                                                                name):
+    """A snapshot taken on the card (pending events included) restores on
+    the card, on the card re-packed, and on the CPU: every leaf equal,
+    then equal answers (`query_all`, `admit`, `topk`) after the restored
+    services flush the pending events.  torch's CPU and CUDA float32
+    expm1 may differ by an ulp, so a log counter's answers (and the cells
+    its CPU flush lands) are held equal across the card's restores only;
+    CMS32 holds the CPU restore's answers equal too."""
+    svc, names, wnames = _admission_services(cuda, "auto", name)
+    svc.snapshot(str(tmp_path), step=1)
+    on_card = CountService.restore(str(tmp_path), device=cuda)
+    on_cpu = CountService.restore(str(tmp_path), device="cpu")
+    packed = CountService.restore(str(tmp_path), device=cuda, packed=True)
+    _, tree = convert.service_to_numpy(svc)
+    for other in (on_card, on_cpu, packed):
+        assert other.admission_of("x") == ASPEC
+    for other in (on_card, on_cpu):
+        _, t2 = convert.service_to_numpy(other)
+        for kind in ("planes", "windows"):
+            for la, lb in zip(tree[kind], t2[kind]):
+                for key, va in la.items():
+                    if isinstance(va, dict):
+                        for sub, x in va.items():
+                            assert np.array_equal(x, lb[key][sub]), (key, sub)
+                    else:
+                        assert np.array_equal(va, lb[key]), key
+    others = (on_card, packed) + ((on_cpu,) if name == "CMS32" else ())
+    probes = np.arange(300, dtype=np.uint32)
+    want = svc.query_all(probes)
+    for other in others:
+        got = other.query_all(probes)
+        for n in want:
+            assert np.array_equal(want[n].cpu().numpy(), got[n].cpu().numpy())
+    for n, kw in ADMITS:
+        ra, ma = svc.admit(n, ADMIT_IDS, **kw)
+        for other in others:
+            rb, mb = other.admit(n, ADMIT_IDS, **kw)
+            assert np.array_equal(ra.cpu().numpy(), rb.cpu().numpy())
+            assert np.array_equal(ma.cpu().numpy(), mb.cpu().numpy())
+    for n in names + wnames:
+        ka, ea = svc.topk(n)
+        for other in others:
+            kb, eb = other.topk(n)
+            assert np.array_equal(ka, kb) and np.array_equal(ea, eb)

@@ -44,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.kernels.ref", "repro_torch.kernels.build",
               "repro_torch.convert", "repro_torch.launch.serve_counts",
               "repro_torch.core.prng", "repro_torch.core.sketch",
-              "repro_torch.core.staging"):
+              "repro_torch.core.staging", "repro_torch.core.admission",
+              "repro_torch.train.checkpoint"):
         assert m in res["modules"]
 
 

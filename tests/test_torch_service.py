@@ -15,6 +15,9 @@ apart where a stochastic rounding threshold moved; the bound is at most
 estimates within 8 ulp where the cells agree.  Measured on this stream:
 no cell differs.
 """
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -217,19 +220,37 @@ def test_service_to_numpy_round_trips_through_service_from_numpy():
             assert np.array_equal(pa[key], pb[key])
 
 
+def _tiered_manifest(svc, root):
+    """Snapshot `svc` and mark its manifest tiered, as a tiered
+    reference service writes it (service-level and per-plane)."""
+    svc.snapshot(root, 1)
+    path = os.path.join(root, "step_00000001", "manifest.json")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["metadata"]["tier"] = {"max_hot_tenants": 1, "policy": "lru"}
+    doc["metadata"]["planes"][0]["tier"] = {}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return root
+
+
+def _tier_state(svc):
+    meta, tree = convert.service_to_numpy(svc)
+    meta["tier"] = {"max_hot_tenants": 1, "policy": "lru"}
+    return convert.service_from_numpy(meta, tree, device="cpu")
+
+
 @pytest.mark.parametrize("call", [
-    lambda s: s.add_tenant("e", admission=object()),
-    lambda s: type(s).restore("/nonexistent"),
-    lambda s: tsk.update_batched(s.sketch_of("a"), torch.zeros(2), [0, 0],
-                                 damp_alpha=0.5),
-    lambda s: s.snapshot("/nonexistent", 1),
-    lambda s: s.admit("a", [1]),
+    lambda s, d: tsk.update_batched(s.sketch_of("a"), torch.zeros(2), [0, 0],
+                                    damp_alpha=0.5),
+    lambda s, d: type(s).restore(_tiered_manifest(s, d), device="cpu"),
+    lambda s, d: _tier_state(s),
 ])
-def test_out_of_slice_features_raise(call):
+def test_out_of_slice_features_raise(call, tmp_path):
     _, ts = _specs("CMS32", False)
     svc = TService(ts, tenants=["a"], track_top=4, device="cpu")
     with pytest.raises(NotImplementedError):
-        call(svc)
+        call(svc, str(tmp_path))
 
 
 @pytest.mark.parametrize("kw", [dict(tier=object()), dict(probe=object())])

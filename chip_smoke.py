@@ -116,7 +116,31 @@ exit, no result line) if anything disagrees:
                 bit-identical, `track_top` 32 and 128 give
                 `resize_stacked` of the saved trackers; snapshot and
                 restore seconds and GiB/s, peak device memory;
- 10. profiles -- last, since a torch.profiler session slows the process's
+ 10. tiering -- TierSpec(max_hot_tenants=8) at full size: (a) the tracked
+                service of phase 3 (32 MiB of hot tables on the card, a
+                256 MiB cold store on the host) beside the untiered one,
+                in interleaved timed pairs, through 4 epochs of each
+                regime (hot-only: the 8 hot tenants active; all: 64
+                active, 56 spill; churn: a 16-tenant working set shifting
+                by 8, so tenants swap), every flush's dispatch audit
+                checked ({update_score_rows: 1}, + tier_spill a cold fill
+                class, + tier_demote and tier_promote on a swap); (b) the
+                windowed service of phase 6 (an (8, 8, 2, 1,048,576) hot
+                leaf, a 1 GiB cold store) through phase 6's 12-epoch
+                stream beside the untiered one; both equal to the
+                untiered services (stacked_tables, query_all, query with
+                n_buckets / gamma / max, every topk) and, every leaf, to
+                the tiered services on the plain engine; (c) a hot-only
+                tracked and windowed epoch and enqueue_many reaching cold
+                tenants under set_sync_debug_mode("error"); (d) both
+                tiered services snapshot with pending events and restored
+                (leaves and manifest equal, answers equal, equal after
+                the next flush, packed=True bit-identical); events/s and
+                median time ratio tiered/untiered per regime, spill
+                bytes, promotions, demotions, peak device bytes,
+                tier_memory_bytes and the host bytes each tiered plane
+                pins, snapshot and restore GiB/s;
+ 11. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
                 counted), one tracked and one windowed `admit` (their
@@ -125,7 +149,10 @@ exit, no result line) if anything disagrees:
                 duration), the card's random-read floor of kernels 7-9
                 (each distinct word a call reads, read once in random
                 order by one index kernel: tools/time_read_kernels.py),
-                then the append wrappers' host time again.
+                one epoch of each tiered regime (hot-only, all, churn)
+                and one tiered windowed epoch (synchronizes, copies,
+                cudaLaunchKernel), then the append wrappers' host time
+                again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -209,7 +236,7 @@ def timed(fn, reps: int, setup=None) -> dict:
     """A kernel wrapper's times: "ms", CUDA events around one call
     (`cuda_ms`), and "host_us", the host time of one call in us
     (perf_counter around it, the card idle before it); "timed" keeps fn
-    and setup for the kernel-alone profile of phase 10."""
+    and setup for the kernel-alone profile of phase 11."""
     ms = cuda_ms(fn, reps, setup)
     total = 0.0
     for _ in range(reps):
@@ -1165,7 +1192,7 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     versions and bytes bounds; the windowed ingest rate and query_all
     latency with kernels and with the plain engine.  Returns (kernel
     report, end-to-end numbers, the drive of one more windowed epoch for
-    the profile of phase 10)."""
+    the profile of phase 11)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sketch as ksk
     from repro_torch.kernels import ops
@@ -1261,7 +1288,7 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     for rep in report.values():
         rep["library_ms"] = None
     # the card's random-read floor of kernels 7-9: each distinct word a
-    # call reads, once, in random order (timed alone in phase 10)
+    # call reads, once, in random order (timed alone in phase 11)
     import time_read_kernels as trk
     for name, keys, at in (
             ("window_query", one_keys[None], [0]),
@@ -1814,7 +1841,7 @@ def observe_and_admit_check(dev, spec, aspec):
 
 
 def snapshot_restore(dev, svc, what: str, more, probes, topk_names,
-                     query=None) -> dict:
+                     query=None, rearm: bool = True) -> dict:
     """(d) for one full-size service with pending ring events: snapshot
     into a temporary directory, restore into a fresh service (every leaf
     equal byte for byte), then query_all and topk equal and, after the
@@ -1880,7 +1907,7 @@ def snapshot_restore(dev, svc, what: str, more, probes, topk_names,
             if not torch.equal(want[n], got[n]):
                 fail(f"{what} restore(packed=True): query_all[{n}] differs")
         del packed
-        for k in (TRACK_TOP // 2, TRACK_TOP * 2):
+        for k in (TRACK_TOP // 2, TRACK_TOP * 2) if rearm else ():
             re = CountService.restore(root, device=dev, track_top=k)
             for i, p in enumerate(re.planes):
                 pre = f"{'windows' if i >= len(re._planes) else 'planes'}/" \
@@ -1904,10 +1931,12 @@ def snapshot_restore(dev, svc, what: str, more, probes, topk_names,
     log(f"{what} snapshot/restore: {nbytes} B of leaves; snapshot "
         f"{out['snapshot_s']:.3f} s ({out['snapshot_gib_s']:.3f} GiB/s), "
         f"restore {out['restore_s']:.3f} s ({out['restore_gib_s']:.3f} "
-        "GiB/s); every leaf equal, query_all / topk equal, equal after the "
-        "next flush; packed=True answers bit-identical; track_top "
-        f"{TRACK_TOP // 2} and {TRACK_TOP * 2} give resize_stacked; launches "
-        f"of the restored service's reads and flush {launches}")
+        "GiB/s); every leaf and the manifest (tier membership included) "
+        "equal, query_all / topk equal, equal after the next flush; "
+        "packed=True answers bit-identical"
+        + (f"; track_top {TRACK_TOP // 2} and {TRACK_TOP * 2} give "
+           "resize_stacked" if rearm else "")
+        + f"; launches of the restored service's reads and flush {launches}")
     out["launches"] = launches
     return out
 
@@ -1931,7 +1960,7 @@ def admit_latency(svc, names, ids, kw) -> dict:
 def admission_phase(dev, spec, stream):
     """Phase 9: admission and snapshot/restore at full size.  Returns
     (kernel launches summed over its paths, the numbers it reports, the
-    drives of one tracked and one windowed admit for phase 10's
+    drives of one tracked and one windowed admit for phase 11's
     profile)."""
     from repro_torch.launch import serve_counts as sc
     aspec = sc.EMB_IDS
@@ -1978,6 +2007,460 @@ def admission_phase(dev, spec, stream):
     drives = (lambda: tsvc.admit("tenant_01", tids[1]),
               lambda: wsvc.admit("trending_02", wids[2], n_buckets=5))
     return launches, res, drives
+
+
+# ---- phase 10 of slice 8: hot/cold tiering ----------------------------------
+
+TIER_HOT = 8            # TierSpec(max_hot_tenants=8) on every plane
+TIER_EPOCHS = 4         # epochs of each tracked regime
+TIER_REGIMES = ("hot_only", "all", "churn")
+CHURN_SET = 16          # the churn regime's working set, shifting by 8
+
+
+class TierPool:
+    """MICRO microbatches of BATCH Zipf(1.3) keys for each of the TENANTS
+    tenants (each in its own key universe), made once: an epoch of any
+    regime is the pool's microbatches of its active tenants, so traffic
+    costs no key generation inside a timed or profiled epoch."""
+
+    def __init__(self, rng):
+        self.keys = [[((rng.zipf(1.3, BATCH) % 10_000)
+                       + t * 1_000_000).astype(np.uint32)
+                      for _ in range(MICRO)] for t in range(TENANTS)]
+
+    def epoch(self, tenants) -> list:
+        return [{f"tenant_{t:02d}": self.keys[t][i] for t in tenants}
+                for i in range(MICRO)]
+
+
+def regime_tenants(regime: str, e: int, hot=None) -> list:
+    """Active tenants of epoch e of a regime: hot_only the hot tier
+    (`hot`, tenants 0-7 at registration), all every tenant, churn a
+    working set of CHURN_SET that shifts by 8 an epoch."""
+    if regime == "hot_only":
+        return list(range(TIER_HOT)) if hot is None else list(hot)
+    if regime == "all":
+        return list(range(TENANTS))
+    return [(8 * e + i) % TENANTS for i in range(CHURN_SET)]
+
+
+def drive_many(svc, many) -> None:
+    for events in many:
+        svc.enqueue_many(events)
+    svc.flush()
+
+
+def timed_epoch(svc, drive) -> tuple:
+    """(seconds, peak device bytes above the start) of one drive, host
+    clock to torch.cuda.synchronize()."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    drive()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def tier_counts(svc) -> dict:
+    out = {}
+    for p in svc.planes:
+        if p.tier is None:
+            continue
+        out[p.label] = {k: int(svc.metrics.counter(k, plane=p.label).value)
+                        for k in ("tier_promotions", "tier_demotions",
+                                  "tier_spill_events", "tier_spill_bytes")}
+    return out
+
+
+def expected_flush_audit(plane) -> dict:
+    """The dispatch audit of the tiered plane's next flush, before its
+    swap: update_score_rows one a fill class of active hot tenants,
+    tier_spill one a fill class of active cold ones (a swap adds
+    tier_demote and tier_promote, one each:
+    `benchmarks/check_regression.py:145-160`)."""
+    from repro_torch.stream import tiering
+    t = plane.tier
+    active = np.flatnonzero(t.hfill)
+    hot = active[t.slot[active] >= 0]
+    cold = active[t.slot[active] < 0]
+    want = {}
+    if hot.size:
+        want["update_score_rows"] = len(tiering.fill_classes(t.hfill, hot,
+                                                             t.capw))
+    if cold.size:
+        want["tier_spill"] = len(tiering.fill_classes(t.hfill, cold, t.capw))
+    return want
+
+
+def median_time_ratio(tiered_rates, untiered_rates) -> float:
+    """The median over interleaved pairs of tiered epoch time / untiered
+    epoch time, from their events/s on the same traffic (the reference's
+    target for hot-only traffic: <= ~1.1,
+    `benchmarks/bench_tiered.py:69-78`; reported, not gated)."""
+    return float(np.median([u / t for t, u in zip(tiered_rates,
+                                                  untiered_rates)]))
+
+
+def counted(fn, launches: dict):
+    """fn()'s result, its kernel launches added into `launches`."""
+    from repro_torch.kernels import sketch as ksk
+    ksk.reset_kernel_launches()
+    out = fn()
+    for k, v in ksk.kernel_launches().items():
+        launches[k] += v
+    return out
+
+
+def compare_tiered(tiered, resident, probes, what: str, names,
+                   launches: dict) -> None:
+    """Tiered against untiered: every plane's `stacked_tables` equal to
+    the untiered tables, `query_all` and every listed tenant's `topk`
+    equal, bit for bit.  The tiered service's reads add their kernel
+    launches into `launches`."""
+    from repro_torch.core.counters import signed_view
+    for pt, pr in zip(tiered.planes, resident.planes):
+        if not torch.equal(signed_view(pt.stacked_tables()),
+                           signed_view(pr.tables)):
+            fail(f"{what}: plane {pt.label} stacked_tables differ from the "
+                 "untiered tables")
+    qa = counted(lambda: tiered.query_all(probes), launches)
+    qb = resident.query_all(probes)
+    for n in qa:
+        if not torch.equal(qa[n], qb[n]):
+            fail(f"{what}: query_all[{n}] differs from the untiered service")
+    for n in names:
+        a = counted(lambda: tiered.topk(n), launches)
+        b = resident.topk(n)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            fail(f"{what}: topk({n}) differs from the untiered service")
+
+
+def tiered_tracked(dev, spec, tspec, pool):
+    """(a): the 64-tenant tracked service of phase 3 tiered at 8 hot
+    tenants, beside the untiered one and the tiered one on the plain
+    engine, through TIER_EPOCHS epochs of each regime (hot_only, all,
+    churn) in interleaved timed pairs, each tiered flush's dispatch
+    audit checked; then tiered == untiered and tiered == plain."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    mem = {}
+    m0 = torch.cuda.memory_allocated()
+    tiered = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                              device=dev, tier=tspec)
+    m1 = torch.cuda.memory_allocated()
+    resident = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                                device=dev)
+    mem["resident_bytes_tiered"] = m1 - m0
+    mem["resident_bytes_untiered"] = torch.cuda.memory_allocated() - m1
+    plain = sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                             device=dev, engine="plain", tier=tspec)
+    plane = tiered.planes[0]
+    launches = dict.fromkeys(ksk.kernel_launches(), 0)
+    report, audits = {}, {}
+    for regime in TIER_REGIMES:
+        tier_s, res_s, peaks = [], [], [0, 0]
+        for e in range(TIER_EPOCHS):
+            many = pool.epoch(regime_tenants(regime, e))
+            events = sum(b.size for ev in many for b in ev.values())
+            promos = int(tiered.metrics.counter(
+                "tier_promotions", plane=plane.label).value)
+            audit = {}
+
+            def drive_tiered():
+                for ev in many:
+                    tiered.enqueue_many(ev)
+                want = expected_flush_audit(plane)
+                with ops.audit_scope() as tally:
+                    tiered.flush()
+                audit.update(got=dict(tally), want=want)
+            pair = [(tiered, drive_tiered),
+                    (resident, lambda: drive_many(resident, many))]
+            for svc, drive in (pair if e % 2 == 0 else pair[::-1]):
+                if svc is tiered:
+                    ksk.reset_kernel_launches()
+                    s, peak = timed_epoch(svc, drive)
+                    tier_s.append(events / s)
+                    peaks[0] = max(peaks[0], peak)
+                    for k, v in ksk.kernel_launches().items():
+                        launches[k] += v
+                else:
+                    s, peak = timed_epoch(svc, drive)
+                    res_s.append(events / s)
+                    peaks[1] = max(peaks[1], peak)
+            swapped = int(tiered.metrics.counter(
+                "tier_promotions", plane=plane.label).value) > promos
+            want = dict(audit["want"])
+            if swapped:
+                want.update(tier_demote=1, tier_promote=1)
+            if audit["got"] != want:
+                fail(f"tiered {regime} epoch {e}: flush audit "
+                     f"{audit['got']} != {want}")
+            if regime == "hot_only" and want != {"update_score_rows": 1}:
+                fail(f"hot-only epoch {e} was not hot-only: {want}")
+            if regime == "all" and "tier_spill" not in want:
+                fail(f"all-active epoch {e} spilled nothing")
+            if regime == "churn" and e >= 1 and not swapped:
+                fail(f"churn epoch {e} swapped nothing")
+            audits[f"{regime}_{e}"] = audit["got"]
+            drive_many(plain, many)
+        ratio = median_time_ratio(tier_s, res_s)
+        report[regime] = {"events_per_s_tiered": tier_s,
+                          "events_per_s_untiered": res_s,
+                          "median_time_ratio": ratio,
+                          "peak_bytes_tiered": peaks[0],
+                          "peak_bytes_untiered": peaks[1],
+                          "tier_counts": tier_counts(tiered)}
+        log(f"tiered tracked, {regime}: {TIER_EPOCHS} epochs, events/s "
+            f"tiered {[round(x) for x in tier_s]} vs untiered "
+            f"{[round(x) for x in res_s]} (interleaved pairs), median "
+            f"time ratio tiered/untiered {ratio:.3f}; peak device bytes above "
+            f"the start of an epoch tiered {peaks[0]} vs untiered "
+            f"{peaks[1]}; tier counters {tier_counts(tiered)}")
+    probes = sc.probes_for(TENANTS, PROBES)[0]
+    names = [f"tenant_{t:02d}" for t in range(TENANTS)] + ["metrics_qps"]
+    compare_tiered(tiered, resident, probes, "tiered tracked", names,
+                   launches)
+    for n in names:
+        plain.topk(n)
+    plain.query_all(probes)
+    compare_leaves(flat_leaves(tiered), flat_leaves(plain),
+                   "tiered tracked: kernels against the plain engine")
+    missing = [k for k in ("fused_query", "fused_update_score",
+                           "queue_append_dense") if not launches[k]]
+    if missing:
+        fail(f"the tiered tracked regimes launched none of {missing}")
+    log(f"tiered tracked: query_all ({PROBES} probes), every tenant's topk "
+        "and stacked_tables equal the untiered service's bit for bit; "
+        "tables, cold store, mirrors and trackers equal the tiered service "
+        f"on the plain engine; flush audits {audits}; launches {launches}")
+    mem.update(report=report, audits=audits)
+    return tiered, resident, plain, launches, mem
+
+
+def tiered_windowed(dev, spec, tspec, stream):
+    """(b): the 32-tenant windowed service of phase 6 tiered at 8 hot
+    tenants (a (8, 8, 2, 1,048,576) hot leaf, a 1 GiB cold store) through
+    phase 6's 12-epoch event-time stream beside the untiered service and
+    the tiered one on the plain engine; then query_all, query (n_buckets,
+    gamma, max) and topk equal to the untiered service's, and every leaf
+    equal to the plain engine's."""
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    m0 = torch.cuda.memory_allocated()
+    tiered = sc.build_service(spec, 0, RING, SEED, TRACK_TOP, device=dev,
+                              trending=WINDOW_TENANTS, tier=tspec)
+    m1 = torch.cuda.memory_allocated()
+    resident = sc.build_service(spec, 0, RING, SEED, TRACK_TOP, device=dev,
+                                trending=WINDOW_TENANTS)
+    mem = {"resident_bytes_tiered": m1 - m0,
+           "resident_bytes_untiered": torch.cuda.memory_allocated() - m1}
+    plain = sc.build_service(spec, 0, RING, SEED, TRACK_TOP, device=dev,
+                             engine="plain", trending=WINDOW_TENANTS,
+                             tier=tspec)
+    launches = dict.fromkeys(ksk.kernel_launches(), 0)
+    tier_s, res_s, peaks = [], [], [0, 0]
+    for e, (many, pairs) in enumerate(stream):
+        events = sum(b.size for ev in many for b in ev.values()) + sum(
+            b.size for ev, _ in pairs for b in ev.values())
+        order = [(tiered, tier_s, 0), (resident, res_s, 1)]
+        for svc, out, i in (order if e % 2 == 0 else order[::-1]):
+            ksk.reset_kernel_launches()
+            s, peak = timed_epoch(
+                svc, lambda: drive_window_epoch(svc, many, pairs))
+            out.append(events / s)
+            peaks[i] = max(peaks[i], peak)
+            if svc is tiered:
+                for k, v in ksk.kernel_launches().items():
+                    launches[k] += v
+        drive_window_epoch(plain, many, pairs)
+    probes = sc.probes_for(0, PROBES, WINDOW_TENANTS)
+    wnames = sc.trending_names(WINDOW_TENANTS)
+    compare_tiered(tiered, resident, probes, "tiered windowed",
+                   wnames + ["metrics_qps"], launches)
+    for n in (wnames[0], wnames[TIER_HOT], wnames[-1]):
+        for kw in ({"n_buckets": 3}, {"gamma": 0.9}, {"mode": "max"}, {}):
+            got = counted(lambda: tiered.query(n, probes[2], **kw),
+                          launches)
+            if not torch.equal(got, resident.query(n, probes[2], **kw)):
+                fail(f"tiered windowed: query({n}, {kw}) differs from the "
+                     "untiered service")
+    for n in wnames + ["metrics_qps"]:
+        plain.topk(n)
+    plain.query_all(probes)
+    compare_leaves(flat_leaves(tiered), flat_leaves(plain),
+                   "tiered windowed: kernels against the plain engine")
+    missing = [k for k in ("fused_update", "fused_update_rows",
+                           "window_query", "window_query_stacked",
+                           "window_query_stacked_rows") if not launches[k]]
+    if missing:
+        fail(f"the tiered windowed stream launched none of {missing}")
+    ratio = median_time_ratio(tier_s, res_s)
+    mem.update(events_per_s_tiered=tier_s, events_per_s_untiered=res_s,
+               median_time_ratio=ratio,
+               peak_bytes_tiered=peaks[0], peak_bytes_untiered=peaks[1],
+               tier_counts=tier_counts(tiered))
+    log(f"tiered windowed: {len(stream)} epochs, events/s tiered "
+        f"{[round(x) for x in tier_s]} vs untiered "
+        f"{[round(x) for x in res_s]} (interleaved), median time ratio "
+        f"{ratio:.3f}; peak device bytes above an "
+        f"epoch's start tiered {peaks[0]} vs untiered {peaks[1]}; tier "
+        f"counters {tier_counts(tiered)}; query_all, query (n_buckets, "
+        "gamma, max) and topk equal the untiered service's; every leaf "
+        f"equals the plain engine's; launches {launches}")
+    return tiered, resident, plain, launches, mem
+
+
+def tier_no_sync(dev, pool, tracked, stream_rng, windowed, ts: float):
+    """(c): under torch.cuda.set_sync_debug_mode("error"), a hot-only
+    tracked epoch (8 enqueue_many to the hot tenants + flush: audit
+    {update_score_rows: 1}), a hot-only windowed epoch (8 enqueue_many
+    (ts=) to the 8 hot windowed tenants + flush), and an enqueue_many
+    that reaches cold tenants of each service (no flush).  Each service's
+    twins (untiered, plain engine) take the same traffic outside the
+    mode.  Returns the kernel launches of the tiered services."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    t_svc = tracked[0]
+    w_svc = windowed[0]
+    hot = [int(x) for x in t_svc.planes[0].tier.slot_tenant]
+    cold = [t for t in range(TENANTS) if t not in hot][:TIER_HOT]
+    many = pool.epoch(hot)
+    mixed = pool.epoch(hot[:4] + cold)[0]
+    pairs, ts = sc.make_trending(stream_rng, TIER_HOT, MICRO, BATCH, ts)
+    whot = set(sc.trending_names(TIER_HOT))
+    wplane = w_svc.planes[-1]
+    if any(wplane.tier.slot[wplane.names.index(n)] < 0 for n in whot):
+        fail("tiered windowed: trending_00..07 are not all hot")
+    wcold = {n: pairs[0][0]["trending_00"] for n in
+             sc.trending_names(WINDOW_TENANTS)[TIER_HOT:TIER_HOT + 8]}
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    step = "tracked hot-only epoch"
+    try:
+        with ops.audit_scope() as tally:
+            for ev in many:
+                t_svc.enqueue_many(ev)
+        with ops.audit_scope() as ftally:
+            t_svc.flush()
+        step = "windowed hot-only epoch"
+        with ops.audit_scope() as wtally:
+            for ev, t in pairs:
+                w_svc.enqueue_many(ev, ts=t)
+            w_svc.flush()
+        step = "enqueue_many reaching cold tenants"
+        t_svc.enqueue_many(mixed)
+        w_svc.enqueue_many(wcold, ts=ts)
+    except RuntimeError as err:
+        fail(f"tiered {step} synchronized under set_sync_debug_mode"
+             f"('error'): {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    launches = ksk.kernel_launches()
+    if dict(ftally) != {"update_score_rows": 1}:
+        fail(f"tiered hot-only flush audit {dict(ftally)}")
+    if any(k.startswith("tier_") for k in wtally):
+        fail(f"tiered windowed hot-only epoch touched the cold tier: "
+             f"{dict(wtally)}")
+    for svc in tracked[1:]:
+        for ev in many:
+            svc.enqueue_many(ev)
+        svc.flush()
+        svc.enqueue_many(mixed)
+    for svc in windowed[1:]:
+        for ev, t in pairs:
+            svc.enqueue_many(ev, ts=t)
+        svc.flush()
+        svc.enqueue_many(wcold, ts=ts)
+    for what, svcs in (("tracked", tracked), ("windowed", windowed)):
+        compare_leaves(flat_leaves(svcs[0]), flat_leaves(svcs[2]),
+                       f"sync-free tiered {what}: kernels against plain")
+    log("sync-free tiering: a hot-only tracked epoch (enqueue_many "
+        f"{dict(tally)}, flush {dict(ftally)}), a hot-only windowed epoch "
+        f"({dict(wtally)}) and enqueue_many reaching cold tenants of both, "
+        "under set_sync_debug_mode('error'), no error; leaves equal the "
+        f"plain engine's; launches {launches}")
+    return launches, ts
+
+
+def tiering_phase(dev, spec, stream):
+    """Phase 10: hot/cold tiering at full size, (a)-(d).  Returns (kernel
+    launches summed over its paths, the numbers it reports, the drives
+    of one profiled epoch of each tracked regime and of the windowed
+    stream for phase 11)."""
+    from repro_torch.launch import serve_counts as sc
+    from repro_torch.stream import TierSpec, tier_memory_bytes
+    t0 = time.perf_counter()
+    peak_before = torch.cuda.max_memory_allocated()
+    tspec = TierSpec(max_hot_tenants=TIER_HOT)
+    pool = TierPool(np.random.default_rng(SEED + 13))
+    res = {"tier_memory_bytes": {
+        "tracked": tier_memory_bytes(spec, tspec, TENANTS),
+        "windowed": {k: v * WINDOW_BUCKETS for k, v in tier_memory_bytes(
+            spec, tspec, WINDOW_TENANTS).items()}}}
+    log(f"tiering: TierSpec(max_hot_tenants={TIER_HOT}) on every plane; "
+        f"tier_memory_bytes {res['tier_memory_bytes']}")
+    t_svc, t_res, t_plain, l_a, res["tracked"] = tiered_tracked(
+        dev, spec, tspec, pool)
+    w_svc, w_res, w_plain, l_b, res["windowed"] = tiered_windowed(
+        dev, spec, tspec, stream)
+    rng = np.random.default_rng(SEED + 14)
+    l_c, ts = tier_no_sync(dev, pool, (t_svc, t_res, t_plain), rng,
+                           (w_svc, w_res, w_plain), stream[-1][1][-1][1])
+    del t_res, t_plain, w_res, w_plain
+
+    # (d) full-size tiered snapshots with pending ring events
+    tnames = [f"tenant_{t:02d}" for t in range(TENANTS)]
+    wnames = sc.trending_names(WINDOW_TENANTS)
+    more_t = pool.epoch(range(0, TENANTS, 4))[0]
+    res["snapshot_tracked"] = snapshot_restore(
+        dev, t_svc, "tiered tracked", lambda s: s.enqueue_many(more_t),
+        sc.probes_for(TENANTS, PROBES)[0],
+        tnames[:2] + tnames[-2:] + ["metrics_qps"], rearm=False)
+    more_w, ts = sc.make_trending(rng, WINDOW_TENANTS, 1, BATCH, ts)
+    wprobes = sc.probes_for(0, PROBES, WINDOW_TENANTS)
+    res["snapshot_windowed"] = snapshot_restore(
+        dev, w_svc, "tiered windowed",
+        lambda s: s.enqueue_many(*more_w[0]), wprobes[2],
+        wnames[:2] + wnames[-2:] + ["metrics_qps"],
+        query=(wnames[-1], wprobes[4]), rearm=False)
+    launches = {k: l_a[k] + l_b[k] + l_c[k]
+                + res["snapshot_tracked"]["launches"][k]
+                + res["snapshot_windowed"]["launches"][k] for k in l_a}
+
+    # the drives phase 11 profiles: one epoch of each tracked regime on the
+    # tiered service as it stands then, and one windowed epoch
+    def hot_now() -> list:
+        return [int(x) for x in t_svc.planes[0].tier.slot_tenant]
+
+    def cold_set() -> list:
+        hot = set(hot_now())
+        return [t for t in range(TENANTS) if t not in hot][:CHURN_SET]
+    wmany, _ = sc.make_epoch(rng, 0, MICRO, BATCH)
+    wpairs, _ = sc.make_trending(rng, WINDOW_TENANTS, MICRO, BATCH, ts)
+    drives = {
+        "hot_only": lambda: drive_many(t_svc, pool.epoch(hot_now())),
+        "all": lambda: drive_many(t_svc, pool.epoch(range(TENANTS))),
+        "churn": lambda: drive_many(t_svc, pool.epoch(cold_set())),
+        "windowed": lambda: drive_window_epoch(w_svc, wmany, wpairs)}
+    res["seconds"] = time.perf_counter() - t0
+    res["peak_device_bytes_before"] = peak_before
+    # the host memory a tiered plane pins beside its cold store, after the
+    # phase's largest cold traffic (uploads of the whole cold store)
+    res["pinned_bytes"] = {what: {p.label: p.pinned_bytes for p in svc.planes
+                                  if p.tier is not None}
+                           for what, svc in (("tracked", t_svc),
+                                             ("windowed", w_svc))}
+    log(f"tiering phase: {res['seconds']:.1f} s; launches {launches}; "
+        f"pinned host bytes per tiered plane {res['pinned_bytes']} beside "
+        f"tier_memory_bytes {res['tier_memory_bytes']}")
+    return launches, res, drives, (t_svc, w_svc)
 
 
 def main(device: str = "cuda") -> None:
@@ -2381,7 +2864,11 @@ def main(device: str = "cuda") -> None:
     adm_launches, adm_report, admit_drives = admission_phase(dev, spec,
                                                              stream)
 
-    # ---- 10. profiles -------------------------------------------------------
+    # ---- 10. hot/cold tiering ----------------------------------------------
+    tier_launches, tier_report, tier_drives, tiered_svcs = tiering_phase(
+        dev, spec, stream)
+
+    # ---- 11. profiles -------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
     # slower (the append wrappers' host time below, before and after), so
     # every event and host-clock time above is taken before the first one.
@@ -2419,12 +2906,24 @@ def main(device: str = "cuda") -> None:
             f"{prof['device_busy_ms']:.3f} ms, idle share "
             f"{prof['idle_share']:.3f}, runtime calls "
             f"{prof['runtime_calls']}")
+    tier_report["profiles"] = {}
+    for what, drive in tier_drives.items():
+        prof = profile_epoch(drive)
+        tier_report["profiles"][what] = prof
+        log(f"one tiered {what} epoch under torch.profiler: wall "
+            f"{prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}, runtime calls "
+            f"{prof['runtime_calls']}, host-to-device copies "
+            f"{prof['host_to_device_copies']}; tier counters "
+            f"{tier_counts(tiered_svcs[0 if what != 'windowed' else 1])}")
     append_host["after_profiler"] = append_host_us(dev, ring, append_calls)
     log("append wrapper host time by part after the profiler sessions, us "
         f"per call: {append_host['after_profiler']}")
-    del svc, wsvc
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        "GiB")
+    del svc, wsvc, tiered_svcs
+    peak = max(tier_report["peak_device_bytes_before"],
+               torch.cuda.max_memory_allocated())
+    log(f"peak device memory {peak / 2**30:.2f} GiB")
 
     src = "src/repro/kernels/sketch.py:"
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2447,7 +2946,7 @@ def main(device: str = "cuda") -> None:
         launches = (main_launches[name] + win_launches[name]
                     + flat_launches[name] + sync_launches[name]
                     + flush_launches[name] + read_launches[name]
-                    + adm_launches[name])
+                    + adm_launches[name] + tier_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -2456,11 +2955,11 @@ def main(device: str = "cuda") -> None:
             f"library {rep['library_ms']}, bound {max(t_bytes, t_ops):.5f} "
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
-            f"flushes / sync-free reads / admission and snapshots "
-            f"{main_launches[name]} / {win_launches[name]} / "
+            f"flushes / sync-free reads / admission and snapshots / "
+            f"tiering {main_launches[name]} / {win_launches[name]} / "
             f"{flat_launches[name]} / {sync_launches[name]} / "
             f"{flush_launches[name]} / {read_launches[name]} / "
-            f"{adm_launches[name]}")
+            f"{adm_launches[name]} / {tier_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2476,7 +2975,7 @@ def main(device: str = "cuda") -> None:
         "query_all_ms": qlat, "query_all_ms_plain": pqlat,
         "append_host_us": append_host},
         "profile_epoch": profile, "window_path": e2e2,
-        "admission": adm_report}), flush=True)
+        "admission": adm_report, "tiering": tier_report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ metadata dict and a leaf tree of arrays, with the admission policies in
 the metadata.  `service_from_numpy(meta, tree, device)` builds a port
 service from the reference's metadata and numpy leaves;
 `service_to_numpy(svc)` gives the same layout back, numpy leaves in their
-storage dtypes, so two services compare leaf by leaf, byte for byte.
-Tier state raises NotImplementedError (tiering is a later slice).
+storage dtypes, so two services compare leaf by leaf, byte for byte.  A
+tiered service's state rides both ways: the TierSpec and each plane's
+membership in the metadata, the cold stores (`cold_tables`) and the
+tenant-indexed queue and fill mirrors among the leaves.
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 _BITS = {torch.uint8: 8, torch.uint16: 16, torch.uint32: 32}
 _NUMPY = {torch.uint8: np.uint8, torch.uint16: np.uint16,
           torch.uint32: np.uint32}
+_TORCH = {np.dtype(n): t for t, n in _NUMPY.items()}
 
 MASK32 = 0xFFFF_FFFF
 
@@ -67,6 +68,16 @@ def zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
     """Zero-filled unsigned storage, made through its signed twin."""
     s = _SIGNED.get(dtype, dtype)
     return torch.zeros(shape, dtype=s, device=device).view(dtype)
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of an unsigned storage dtype (uint8/16/32)."""
+    return np.dtype(_NUMPY[dtype])
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of an unsigned numpy storage dtype (uint8/16/32)."""
+    return _TORCH[np.dtype(dtype)]
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -19,6 +19,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.counters import (CounterSpec, from_i64, pack_table,
                                        to_i64, unpack_table, zeros)
+from repro_torch.core.device import resolve_device
 from repro_torch.core.hashing import as_i64, make_row_seeds, row_hashes
 
 _KEY_MAX = 0xFFFF_FFFF
@@ -117,9 +118,12 @@ class Sketch:
                               device=self.table.device)
 
 
-def init(spec: SketchSpec, device="cpu") -> Sketch:
+def init(spec: SketchSpec, device=None) -> Sketch:
+    """A zero sketch on `device`: CUDA unless the caller passes "cpu"
+    (`core/device.resolve_device`)."""
     return Sketch(table=zeros((spec.depth, spec.storage_width),
-                              spec.storage_dtype, device), spec=spec)
+                              spec.storage_dtype, resolve_device(device)),
+                  spec=spec)
 
 
 def logical_table(table: torch.Tensor, spec: SketchSpec) -> torch.Tensor:

@@ -5,9 +5,10 @@ Counterpart of `repro/kernels/ops.py`: reads (`query`, `query_many`,
 `update_xla`, the untracked flush's `update_many` / `update_rows`, and
 the tracked flush epoch `update_score_rows`: weighted dedup, parity
 uniforms drawn in the kernel, fused update + candidate score), the
-window leaf's rotation (`window_advance_rows`), and the device-resident
+window leaf's rotation (`window_advance_rows`), the device-resident
 ingest ring (`ring_width`, `queue_init`, `queue_append`, `flush_inputs`,
-`flush_rows_inputs`).
+`flush_rows_inputs`), and the cold tier's device side (`tier_spill`,
+`tier_query`, `tier_demote`, `tier_promote`).
 
 engine: "auto" hands the tensors to the kernel wrappers in
 `kernels.sketch`, which launch the CUDA kernel for CUDA tensors and run
@@ -524,6 +525,14 @@ def _live_mask(fill_d: torch.Tensor, cols: int) -> torch.Tensor:
             < fill_d[:, None]).to(torch.float32)
 
 
+def live_mask(fill, cols: int, device) -> torch.Tensor:
+    """(R, cols) float32 live-slot mask of the host fills (R,), built on
+    `device` from one staged upload of the fills (no synchronize): a
+    tiered plane's cold rows, whose keys come from the host mirror."""
+    fill_d = staging.upload(device, np.asarray(fill, np.int64))[0]
+    return _live_mask(fill_d, cols)
+
+
 def flush_inputs(queue: torch.Tensor, fill, cols: int):
     """(queue[:, :cols], (T, cols) float32 live-slot mask); only the (T,)
     fill vector crosses to the device, without a synchronize."""
@@ -540,3 +549,105 @@ def flush_rows_inputs(queue: torch.Tensor, fill, rows, cols: int):
                                     np.asarray(fill, np.int64))
     keys = signed_view(queue)[rows_d, :cols].view(torch.uint32)
     return keys, _live_mask(fill_d, cols)
+
+
+# --------------------------------------------------------------------------
+# tiered hot/cold plane storage (stream/tiering.py)
+#
+# The cold tier lives in host memory (numpy, storage layout); these are
+# its device side.  A spill and a cold read run the same kernels as the
+# hot tier, on a stack the caller uploaded, and each op tallies under its
+# OWN name, so "a hot-tier flush epoch is one update_score_rows" stays a
+# counted claim when cold tenants spill in the same epoch.
+# --------------------------------------------------------------------------
+
+def tier_spill(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
+               weights, uniform_rows, cand=None, engine: str = "auto"):
+    """Cold-tier spill, IN PLACE on `tables`: C cold tenants' buffered
+    batches land on their uploaded (C, d, sw) table stack.
+
+    keys/weights (C, N) are the tenants' host queue-mirror slices; the
+    dedup and the chunk order are the hot path's, and the uniforms are
+    rows `urows` of the (total, N) grid (`uniform_rows` = (total, urows),
+    REQUIRED: each stack row's tenant index in the full tenant grid), so
+    a spilled row's cells equal what the hot flush would have landed had
+    the tenant been resident.  Always the CHUNK-sequential engine (no
+    one-shot switch, as in the reference).  With `cand` (C, M) the spill
+    also scores the candidates against the updated rows and returns
+    (tables, float32 (C, M)); without it, tables.  On the card: kernel 2
+    with the identity row map (with `cand`) or kernel 5, each drawing its
+    uniforms at `urows`; on the CPU or with engine "plain", their plain
+    versions.  Tallied as "tier_spill" only."""
+    _check_engine(engine)
+    total, urows = uniform_rows
+    total = int(total)
+    urows = np.asarray(urows, np.int64).reshape(-1)
+    dev = tables.device
+    keys = as_device_keys(keys, dev)
+    weights = _weights(keys, weights)
+    _launch("tier_spill")
+    sorted_keys, mult = sk.dedup_weighted(keys, weights)
+    kw = dict(counter=spec.counter, cpl=spec.cells_per_lane)
+    if engine == "plain":
+        uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
+        seed_t = _seed_tensor(spec, dev)
+        if cand is None:
+            return ref.fused_update_plain(tables, sorted_keys, mult,
+                                          uniforms, seed_t, chunk=CHUNK, **kw)
+        rows_d = torch.arange(tables.shape[0], device=dev)
+        return ref.update_score_rows_ref(
+            tables, sorted_keys, mult, uniforms, rows_d,
+            as_device_keys(cand, dev), seed_t, spec.counter, CHUNK,
+            cpl=spec.cells_per_lane)
+    keys_u = from_i64(sorted_keys, torch.uint32)
+    kw.update(seeds=_seeds_tuple(spec), width=spec.width)
+    if cand is None:
+        return ksk.fused_update(tables, keys_u, mult, rng,
+                                grid=(total, urows), **kw)
+    return ksk.fused_update_score(
+        tables, keys_u, mult, rng, as_device_keys(cand, dev),
+        np.arange(tables.shape[0], dtype=np.int64), grid=(total, urows),
+        **kw)
+
+
+def tier_query(tables: torch.Tensor, spec: sk.SketchSpec, keys,
+               engine: str = "auto") -> torch.Tensor:
+    """Cold-tier read: float32 (C, N) estimates over an uploaded
+    (C, d, sw) stack, through the same fused query as the hot tier
+    (kernel 1 on the card), so hot and cold tenants answer a `query_all`
+    identically.  keys (C, N), or (N,) broadcast to every row.  Tallied
+    as "tier_query"."""
+    _check_engine(engine)
+    keys = read_keys(keys, tables.device)
+    if keys.dim() == 1:
+        keys = keys.view(torch.int32).expand(tables.shape[0], -1)
+        keys = keys.contiguous().view(torch.uint32)
+    if keys.shape[0] != tables.shape[0]:
+        raise ValueError(f"per-tenant keys need {tables.shape[0]} rows, "
+                         f"got {keys.shape[0]}")
+    _launch("tier_query")
+    return _query_tables(tables, spec, keys, engine)
+
+
+def tier_demote(tables: torch.Tensor, rows) -> torch.Tensor:
+    """Demotion gather: the demoted slots' tables out of the hot stack,
+    ONE gather on the device (the caller copies them to the cold store;
+    the ring needs no read-back, the host mirror holds its contents).
+    Tallied as "tier_demote"."""
+    _launch("tier_demote")
+    idx = staging.upload(tables.device, np.asarray(rows, np.int64))[0]
+    return signed_view(tables)[idx].view(tables.dtype)
+
+
+def tier_promote(tables: torch.Tensor, queue: torch.Tensor, rows,
+                 new_tables: torch.Tensor, new_queue: torch.Tensor):
+    """Promotion scatter, IN PLACE: the promoted tenants' tables and
+    ring-mirror rows land at hot slots `rows` of the table stack and the
+    ring, one `index_copy_` each.  new_tables / new_queue are on the
+    stacks' device (the caller's upload).  Tallied as "tier_promote";
+    returns (tables, queue)."""
+    _launch("tier_promote")
+    idx = staging.upload(tables.device, np.asarray(rows, np.int64))[0]
+    signed_view(tables).index_copy_(0, idx, signed_view(new_tables))
+    signed_view(queue).index_copy_(0, idx, signed_view(new_queue))
+    return tables, queue

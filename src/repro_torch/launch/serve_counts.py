@@ -29,7 +29,11 @@ a Zipf microbatch in every `enqueue_many` and then `admit`s 32 probe ids
 from its tracker, and the whole service goes through a snapshot/restore
 round trip (a temporary directory) whose reads must equal the original's.
 Every tracked flush epoch is one fused update + score dispatch per fill
-class.  The run prints span and dispatch summaries off the metrics
+class.  `--tier-hot N` turns on tiered hot/cold storage
+(`TierSpec(max_hot_tenants=N)`, LRU victims): each plane keeps at most N
+tenants on the device and the rest in a host cold store, and the run
+prints each plane's tier occupancy and its promotion, demotion and spill
+counters.  The run prints span and dispatch summaries off the metrics
 registry.
 
 Runs on CUDA by default; `--device cpu` runs the plain versions.
@@ -46,7 +50,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import CMLS16, CMS32, SketchSpec
 from repro_torch.core.admission import AdmissionSpec
-from repro_torch.stream import CountService, WindowPlane, WindowSpec
+from repro_torch.stream import CountService, TierSpec, WindowPlane, WindowSpec
 
 LATER_SLICES = "not yet in the port (a later slice): the accuracy probe"
 
@@ -65,15 +69,16 @@ def trending_names(n: int) -> list[str]:
 def build_service(spec: SketchSpec, tenants: int, queue_capacity: int,
                   seed: int, track_top, device=None,
                   engine: str = "auto", metrics=None, tracer=None,
-                  trending: int = 0, admission=None) -> CountService:
+                  trending: int = 0, admission=None,
+                  tier=None) -> CountService:
     """The launcher's service: `tenants` tenants on `spec`, the CMS32
     metrics plane exactly as the reference launcher builds it, then
     `trending` windowed tenants (WindowSpec(spec, 8 buckets, 60 s)).
     `admission` (an AdmissionSpec) arms that policy on every tenant but
-    the metrics plane's."""
+    the metrics plane's; `tier` (a TierSpec) tiers every plane."""
     svc = CountService(spec, queue_capacity=queue_capacity, seed=seed,
                        track_top=track_top, metrics=metrics, tracer=tracer,
-                       device=device, engine=engine)
+                       device=device, engine=engine, tier=tier)
     for t in range(tenants):
         svc.add_tenant(f"tenant_{t:02d}", admission=admission)
     metrics_spec = SketchSpec(width=1024, depth=2, counter=CMS32)
@@ -159,15 +164,21 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--tier-hot", type=int, default=None,
+                    help="turn on tiered hot/cold storage: keep at most "
+                         "this many tenants per plane device-resident "
+                         "(TierSpec(max_hot_tenants=...), LRU victims)")
     args = ap.parse_args(argv)
 
     spec = SketchSpec(width=args.width, depth=args.depth, counter=CMLS16)
     registry = obs.MetricsRegistry()
     tracer = obs.Tracer(enabled=True, metrics=registry)
     track_top = args.track_top or None
+    tier = (None if args.tier_hot is None
+            else TierSpec(max_hot_tenants=args.tier_hot))
     svc = build_service(spec, args.tenants, args.queue_cap, args.seed,
                         track_top, device=args.device, metrics=registry,
-                        tracer=tracer, trending=args.trending)
+                        tracer=tracer, trending=args.trending, tier=tier)
     if track_top:
         svc.add_tenant("emb_ids", admission=EMB_IDS)
     rng = np.random.default_rng(args.seed)
@@ -211,6 +222,17 @@ def main(argv=None) -> None:
             line += (f", {rot} bucket rotations, watermark lag high-water "
                      f"{lags} intervals")
         print(line)
+    # tier occupancy and swap traffic (tiering on): the hot/cold split of
+    # each plane and the promotions, demotions and spills the stream forced
+    for label, occ in svc.tier_occupancy().items():
+        count = {k: int(svc.metrics.counter(k, plane=label).value)
+                 for k in ("tier_promotions", "tier_demotions",
+                           "tier_spill_events", "tier_spill_bytes")}
+        print(f"[serve_counts] tier {label}: {occ['hot']} hot / "
+              f"{occ['cold']} cold tenants, {count['tier_promotions']} "
+              f"promotions, {count['tier_demotions']} demotions, "
+              f"{count['tier_spill_events']} spills "
+              f"({count['tier_spill_bytes']} bytes)")
 
     probes = probes_for(args.tenants, args.probes, args.trending)
     if track_top:  # emb_ids registered last: its hottest ids

@@ -1,6 +1,6 @@
 """Multi-tenant counting service: spec-bucketed planes + device-resident ingest.
 
-PyTorch counterpart of `repro/stream/service.py`, without tiering:
+PyTorch counterpart of `repro/stream/service.py`:
 
   * Tenants sharing one `SketchSpec` stack into a `TenantPlane` whose
     tables form one (T, d, w) device tensor; tenants with another spec
@@ -48,16 +48,32 @@ the ring first.  On a clean plane an admit issues no synchronize.
 `snapshot` / `restore` write and read the reference's checkpoint
 (`train/checkpoint.py`, manifest v8; either package restores the other's
 files): tables, rings, fills, trackers, window cursors and watermarks,
-the PRNG lanes, the admission policies and the metrics.  `restore`
-reads manifests v1-v8 (v1's host queue replays into the device ring),
-re-packs the storage on load (`packed=`) and re-arms the trackers at
-another width (`track_top=`).
+the PRNG lanes, the admission policies, the metrics and, for a tiered
+service, the tier membership, the cold stores and the queue mirrors.
+`restore` reads manifests v1-v8 (v1's host queue replays into the device
+ring), re-packs the storage on load (`packed=`) and re-arms the trackers
+at another width (`track_top=`).
+
+Construction with `tier=TierSpec(max_hot_tenants=N, policy=...)` turns
+on tiered hot/cold storage (`stream/tiering.py`): each plane keeps at
+most N tenants in its device stack (slot-indexed) and the rest in a host
+cold store in the storage layout.  Cold tenants' events collect in the
+host queue mirror and land through one batched spill a fill class an
+epoch (`ops.tier_spill`: kernels 2 and 5 on the uploaded stack, the
+uniforms drawn at the tenants' rows of the full grid); promotion and
+demotion ride the flush's active rows, one gather and one scatter an
+epoch.  The hot-tier epoch stays one `update_score_rows` a fill class,
+and `query_all` / `topk` answer as an all-resident service does, bit for
+bit.  An append to hot tenants and an epoch with no cold tenant active
+and no swap issue no synchronize; an append to a cold tenant launches
+nothing.  A plane's cold-tier uploads and read-backs go through its own
+pinned buffers (`_ColdLink`).
 
 The port updates tables, leaves and rings in place (the reference
-donates them); the results are the same.  Tiering (a tiered manifest
-included) and the accuracy probe are later slices and raise
-`NotImplementedError`.  Entry points run on CUDA unless `device="cpu"`;
-without a GPU a CUDA service raises instead of carrying on on the CPU.
+donates them); the results are the same.  The accuracy probe is a later
+slice and raises `NotImplementedError`.  Entry points run on CUDA unless
+`device="cpu"`; without a GPU a CUDA service raises instead of carrying
+on on the CPU.
 """
 from __future__ import annotations
 
@@ -70,15 +86,18 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import admission as adm
+from repro_torch.core import sharded
 from repro_torch.core import sketch as sk
 from repro_torch.core import staging
 from repro_torch.core import topk
-from repro_torch.core.counters import (CounterSpec, signed_view, to_numpy,
-                                       zeros)
+from repro_torch.core.counters import (CounterSpec, numpy_dtype, signed_view,
+                                       to_numpy, torch_dtype, zeros)
+from repro_torch.core.device import resolve_device
 from repro_torch.core.sketch import Sketch, SketchSpec
 from repro_torch.kernels import ops
 from repro_torch.stream import tiering
 from repro_torch.stream import window as w
+from repro_torch.stream.tiering import TierSpec
 from repro_torch.train import checkpoint
 
 _as_keys = sk.as_uint32_keys
@@ -86,7 +105,6 @@ _as_keys = sk.as_uint32_keys
 VERSION = 8  # the checkpoint manifest's schema, as the reference writes it
 
 LATER = {
-    "tier": "hot/cold tiering (stream/tiering.py TierSpec) is a later slice",
     "probe": "the accuracy probe (obs/probes.py) is a later slice",
 }
 
@@ -121,18 +139,6 @@ def _repack(tables: torch.Tensor, old: SketchSpec, new: SketchSpec
         signed_view(out)[i] = signed_view(
             sk.storage_table(sk.logical_table(tables[i], old), new))
     return out
-
-
-def resolve_device(device) -> torch.device:
-    """None means CUDA.  A CUDA device without a GPU raises: entry points
-    never carry on on the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda is not "
-                           "available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class _RngLane:
@@ -238,6 +244,98 @@ class _DeviceRing:
         self.fill[:] = 0
 
 
+class _ColdLink:
+    """A tiered plane's own pinned host buffers for its cold-tier traffic,
+    of a bounded size whatever the size of the cold store.
+
+    `up` gathers rows of a host array (the cold store, the queue mirror)
+    chunk by chunk, at most `SLOT_BYTES` (or one row, when a row is
+    larger) at a time, into the next of two reused host slots (pinned on
+    CUDA), and copies each chunk into one device tensor with a
+    `non_blocking` copy (`core/staging.py`): no pageable copy, and the
+    host waits only for the copy two chunks back.  `down` copies a device
+    tensor back through one reused pinned buffer of the same bound, chunk
+    by chunk, into rows of a host array: the design's sanctioned
+    read-back (the spill's and the demotion's), which waits for each
+    chunk's copy (one synchronize a chunk).  So a plane pins at most
+    three such chunks (`pinned_bytes`).
+    On the CPU, the same packing into plain memory."""
+
+    SLOTS = 2
+    SLOT_BYTES = 32 << 20
+
+    def __init__(self, device):
+        self.device = device
+        self._cuda = device.type == "cuda"
+        self._staging = staging.HostStaging(device, self.SLOTS, torch.uint8)
+        self._down = torch.empty(0, dtype=torch.uint8)
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Host bytes the link holds pinned (0 on the CPU)."""
+        if not self._cuda:
+            return 0
+        return sum(h.numel() for h in self._staging.host) + self._down.numel()
+
+    @staticmethod
+    def _check_rows(rows: np.ndarray, n: int) -> None:
+        """Raise on a row outside [0, n): a cold tenant's slot -1 or a
+        stale row would move another tenant's table."""
+        if rows.size and (rows.min() < 0 or rows.max() >= n):
+            raise IndexError(f"rows {rows.min()}..{rows.max()} outside the "
+                             f"{n} rows of the host array")
+
+    def _per_chunk(self, row_bytes: int) -> int:
+        return max(1, self.SLOT_BYTES // max(row_bytes, 1))
+
+    def up(self, src: np.ndarray, rows=None) -> torch.Tensor:
+        """src[rows] (rows of the leading axis, all of them when None) as
+        a contiguous tensor of src's dtype on the device."""
+        rows = (np.arange(src.shape[0]) if rows is None
+                else np.asarray(rows, np.int64).reshape(-1))
+        tail = tuple(src.shape[1:])
+        row_bytes = int(np.prod(tail, dtype=np.int64)) * src.dtype.itemsize
+        self._check_rows(rows, src.shape[0])
+        per = self._per_chunk(row_bytes)
+        dev = torch.empty(rows.size * row_bytes, dtype=torch.uint8,
+                          device=self.device)
+        for a in range(0, rows.size, per):
+            r = rows[a:a + per]
+            host = self._staging.stage(r.size * row_bytes)
+            # mode="clip" writes straight into `out` (the default "raise"
+            # buffers the whole gather first); `_check_rows` checked rows
+            np.take(src, r, axis=0, mode="clip",
+                    out=host.numpy().view(src.dtype).reshape((r.size,) + tail))
+            self._staging.send(host,
+                               dev[a * row_bytes:(a + r.size) * row_bytes])
+        return dev.view(torch_dtype(src.dtype)).view((rows.size,) + tail)
+
+    def down(self, x: torch.Tensor, dst: np.ndarray, rows) -> None:
+        """dst[rows] = x: a device tensor, rows along its leading axis,
+        copied into rows of the host array dst (x's storage dtype)."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        if not rows.size:
+            return
+        self._check_rows(rows, dst.shape[0])
+        if not self._cuda:
+            dst[rows] = to_numpy(x)
+            return
+        xb = signed_view(x).contiguous().reshape(rows.size, -1) \
+            .view(torch.uint8)
+        per = self._per_chunk(xb.shape[1])
+        dtype, tail = numpy_dtype(x.dtype), tuple(x.shape[1:])
+        for a in range(0, rows.size, per):
+            chunk = xb[a:a + per]
+            n = chunk.numel()
+            if self._down.numel() < n:
+                self._down = torch.empty(n, dtype=torch.uint8,
+                                         pin_memory=True)
+            host = self._down[:n]
+            host.copy_(chunk.reshape(-1))
+            dst[rows[a:a + per]] = host.numpy().view(dtype).reshape(
+                (chunk.shape[0],) + tail)
+
+
 class _TelemetryMixin:
     """Per-plane instruments + tracer (ring occupancy gauge with
     high-water, event/flush counters, tenant-count gauge)."""
@@ -296,7 +394,19 @@ class _TrackerMixin:
 
 
 class _PlaneBase(_TrackerMixin, _TelemetryMixin):
-    """What both plane kinds share: device, engine, ring, PRNG lane."""
+    """What both plane kinds share: device, engine, ring, PRNG lane, and
+    the hot/cold tier plumbing.
+
+    With `tier=None` the tier methods are the all-resident behavior
+    (device arrays indexed by tenant row, the `_DeviceRing` the only
+    queue).  With a `TierSpec`, the device stacks and the ring are
+    SLOT-indexed (H = min(max_hot_tenants, T) rows), `tiering.PlaneTier`
+    keeps the tenant-indexed host state (cold store, queue and fill
+    mirrors, recency and frequency signals), and the plane routes queue
+    traffic and runs each epoch's rebalance swap.  Trackers stay
+    tenant-indexed on the device for both tiers."""
+
+    tier: Optional[tiering.PlaneTier]
 
     def _init_plane(self, queue_capacity: int, seed: int, device,
                     engine: str) -> None:
@@ -307,18 +417,156 @@ class _PlaneBase(_TrackerMixin, _TelemetryMixin):
         self.rng = _RngLane(seed)
         self.names: list[str] = []
 
+    def _init_tier(self, tspec: Optional[TierSpec], row_shape) -> None:
+        if tspec is None:
+            self.tier = None
+            return
+        self.tier = tiering.PlaneTier(tspec, row_shape,
+                                      numpy_dtype(self.spec.storage_dtype),
+                                      self.ring.capacity)
+        self._link = _ColdLink(self.device)
+        m, label = self.metrics, self.label
+        self._g_hot = m.gauge("tier_hot_tenants", plane=label)
+        self._g_cold = m.gauge("tier_cold_tenants", plane=label)
+        self._m_promotions = m.counter("tier_promotions", plane=label)
+        self._m_demotions = m.counter("tier_demotions", plane=label)
+        self._m_spills = m.counter("tier_spill_events", plane=label)
+        self._m_spill_bytes = m.counter("tier_spill_bytes", plane=label)
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Host bytes pinned for the plane's cold-tier traffic (its link's
+        bounded chunks; 0 untiered or on the CPU)."""
+        return 0 if self.tier is None else self._link.pinned_bytes
+
+    def _tier_gauges(self) -> None:
+        if self.tier is not None:
+            self._g_hot.set(self.tier.hot_count)
+            self._g_cold.set(self.tier.cold_count)
+
     @property
     def queue_capacity(self) -> int:
         return self.ring.capacity
 
     def pending(self) -> int:
-        return int(self.ring.fill.sum())
+        if self.tier is None:
+            return int(self.ring.fill.sum())
+        return self.tier.pending()
 
     def queue_free(self, row: int) -> int:
-        return self.ring.free(row)
+        """Free queue slots of one tenant (a cold tenant buffers in the
+        host mirror, at the device ring's capacity)."""
+        if self.tier is None:
+            return self.ring.free(row)
+        return self.tier.free(row)
 
     def queue_append_rows(self, rows, batches) -> None:
-        self.ring.append(rows, batches)
+        """Route tenant microbatches into the queue: hot tenants append to
+        the device ring at their slots (one append launch) AND to the host
+        mirror; cold tenants touch only the mirror, no device work until
+        they are promoted."""
+        if self.tier is None:
+            self.ring.append(rows, batches)
+            return
+        t = self.tier
+        hot = [i for i, r in enumerate(rows) if t.slot[r] >= 0]
+        if hot:
+            self.ring.append([int(t.slot[rows[i]]) for i in hot],
+                             [batches[i] for i in hot])
+        t.mirror_append(rows, batches)
+
+    def _mirror_inputs(self, rows: np.ndarray, cols: int):
+        """(keys (R, cols), (R, cols) live mask) of tenant rows from the
+        host queue mirror, on the device: the keys through the plane's
+        link, the mask built from one staged upload of the fills."""
+        t = self.tier
+        keys = self._link.up(t.hqueue[:, :cols], rows)
+        return keys, ops.live_mask(t.hfill[rows], cols, self.device)
+
+    def _note_spill(self, rows: np.ndarray) -> None:
+        self._m_spills.inc(int(rows.size))
+        self._m_spill_bytes.inc(2 * int(rows.size) * self.spec.memory_bytes)
+
+    def _tier_rebalance(self) -> None:
+        """Post-flush swap: the most active just-active cold tenants take
+        idle victims' slots, ONE demotion gather (and its read-back, the
+        sanctioned device-to-host copy) + ONE promotion scatter an epoch,
+        however many tenants swap."""
+        t = self.tier
+        demote, promote = t.plan_swap()
+        if demote.size:
+            slots = t.slot[demote].copy()
+            self._link.down(ops.tier_demote(self.tables, slots), t.cold,
+                            demote)
+            ops.tier_promote(self.tables, self.ring.queue, slots,
+                             self._link.up(t.cold, promote),
+                             self._link.up(t.hqueue, promote))
+            t.swap(demote, promote)
+            self.ring.fill[slots] = t.hfill[promote]
+            self._m_promotions.inc(int(promote.size))
+            self._m_demotions.inc(int(demote.size))
+        self._tier_gauges()
+
+    def stacked_tables(self) -> torch.Tensor:
+        """The tenant-ordered table stack across tiers (the all-resident
+        layout, `sharded.tier_assemble`); untiered, the stack itself."""
+        if self.tier is None:
+            return self.tables
+        return sharded.tier_assemble(self.tables, self.tier.slot_tenant,
+                                     self._link.up(self.tier.cold))
+
+    def _add_slot(self, zero: torch.Tensor) -> int:
+        """Register a tenant: untiered, a table row and a ring row; tiered,
+        those only for a tenant that goes hot.  Returns its tenant row."""
+        row = None
+        if self.tier is not None:
+            row, goes_hot = self.tier.add_row()
+            self._tier_gauges()
+            if not goes_hot:
+                return row
+        self.tables = torch.cat([signed_view(self.tables),
+                                 signed_view(zero)]).view(self.tables.dtype)
+        slot = self.ring.add_row()
+        return slot if row is None else row
+
+    def _tenant_stack(self, row: int) -> tuple:
+        """(stack, i): a device stack that holds one tenant's table (a
+        windowed tenant's ring) at row i.  The plane's own stack at the
+        tenant's row (its slot, tiered), or a cold tenant's row uploaded
+        as a one-row stack, with i None."""
+        if self.tier is None:
+            return self.tables, row
+        slot = int(self.tier.slot[row])
+        if slot >= 0:
+            return self.tables, slot
+        return self._link.up(self.tier.cold, [row]), None
+
+    def _tenant_tables(self, row: int) -> torch.Tensor:
+        """One tenant's table (a windowed tenant's ring) on the device:
+        `_tenant_stack`'s row."""
+        stack, i = self._tenant_stack(row)
+        return stack[0 if i is None else i]
+
+    def _tiered_read(self, keys, read) -> torch.Tensor:
+        """(T, N) float32 answers of a tiered plane, tenant-ordered:
+        read(tables, rows, probes, hot) once on the hot stack (rows: the
+        hot tenants in slot order, hot True) and once on the uploaded
+        cold stack, the two reassembled on the device.  keys (N,)
+        shared, or (T, N) per tenant."""
+        t = self.tier
+        keys = ops.read_keys(keys, self.device)
+        out = torch.empty((len(self.names), keys.shape[-1]),
+                          dtype=torch.float32, device=self.device)
+        for rows, hot in ((t.slot_tenant, True),
+                          (np.flatnonzero(t.slot < 0), False)):
+            if not rows.size:
+                continue
+            rows_d = self._rows_d(rows)
+            probes = (keys if keys.dim() == 1 else
+                      signed_view(keys)[rows_d].view(torch.uint32))
+            tables = self.tables if hot else self._link.up(t.cold, rows)
+            out.index_copy_(0, rows_d, read(tables, rows, probes, hot))
+        return out
 
     def _rows_d(self, rows) -> torch.Tensor:
         """Host row indices as an int64 tensor on the plane's device,
@@ -333,23 +581,23 @@ class TenantPlane(_PlaneBase):
                  track_top: Optional[int] = None,
                  metrics: Optional[obs.MetricsRegistry] = None,
                  tracer: Optional[obs.Tracer] = None, label: str = "p0",
-                 device=None, engine: str = "auto"):
+                 device=None, engine: str = "auto",
+                 tier: Optional[TierSpec] = None):
         self._init_plane(queue_capacity, seed, device, engine)
         self.spec = spec
         self.tables = zeros((0, spec.depth, spec.storage_width),
                             spec.storage_dtype, self.device)
         self._init_tracker(track_top, self.device)
         self._init_telemetry(metrics, tracer, label)
+        self._init_tier(tier, (spec.depth, spec.storage_width))
 
     def add(self, name: str) -> int:
         self.names.append(name)
         self._grow_tracker(self.device)
         self._g_tenants.set(len(self.names))
-        zero = zeros((1, self.spec.depth, self.spec.storage_width),
-                     self.spec.storage_dtype, self.device)
-        self.tables = torch.cat([signed_view(self.tables),
-                                 signed_view(zero)]).view(self.tables.dtype)
-        return self.ring.add_row()
+        return self._add_slot(zeros((1, self.spec.depth,
+                                     self.spec.storage_width),
+                                    self.spec.storage_dtype, self.device))
 
     def flush(self, dense: bool = False) -> int:
         """Land every tenant's pending events.
@@ -363,11 +611,18 @@ class TenantPlane(_PlaneBase):
         uniforms key, so the tables land exactly as a dense whole-plane
         flush would.  `dense=True` runs that whole-plane baseline (one
         `update_many`, then with tracking a separate `query_many`
-        refresh): the parity oracle.
+        refresh): the parity oracle.  A tiered plane flushes through
+        `_flush_tiered` and has no dense baseline.
         """
         pending = self.pending()
         if pending == 0:
             return 0
+        if self.tier is not None:
+            if dense:
+                raise ValueError("dense flush is the all-resident baseline "
+                                 "pipeline; tiered planes have no resident "
+                                 "whole-plane layout to run it on")
+            return self._flush_tiered(pending)
         rng = self.rng.next()
         active = np.flatnonzero(self.ring.fill).astype(np.int32)
         tr = self.tracer
@@ -400,6 +655,92 @@ class TenantPlane(_PlaneBase):
             ep.sync(self.tables)
         self._note_flush(pending)
         return pending
+
+    def _flush_tiered(self, pending: int) -> int:
+        """Tiered flush epoch: per fill class, hot tenants land through
+        the same dispatch an all-resident plane issues (rows mapped to
+        their slots, uniforms drawn at their tenant rows of the full grid)
+        and cold tenants through one batched spill (`_tier_spill`), so
+        every table lands as in the resident service.  The epoch ends
+        with the recency stamp and the rebalance swap."""
+        t = self.tier
+        rng = self.rng.next()
+        total = len(self.names)
+        active = np.flatnonzero(t.hfill).astype(np.int32)
+        tr = self.tracer
+        with tr.span("flush_epoch", plane=self.label,
+                     rows=int(active.size)) as ep:
+            for cols, rows_g in tiering.fill_classes(t.hfill, active,
+                                                     t.capw):
+                slot_g = t.slot[rows_g]
+                hot_g = rows_g[slot_g >= 0]
+                cold_g = rows_g[slot_g < 0]
+                if hot_g.size:
+                    self._flush_hot_class(rng, cols, hot_g, total)
+                if cold_g.size:
+                    with tr.span("tier_spill", plane=self.label,
+                                 rows=int(cold_g.size)):
+                        self._tier_spill(cold_g, cols, rng, total)
+            self.ring.reset()
+            t.note_flush(active)
+            self._tier_rebalance()
+            ep.sync(self.tables)
+        self._note_flush(pending)
+        return pending
+
+    def _flush_hot_class(self, rng, cols: int, hot_g: np.ndarray,
+                         total: int) -> None:
+        """One fill class of hot tenants: their ring slots gathered, then
+        ONE `update_score_rows` (tracked) or `update_rows` on the hot
+        stack at their slots, uniforms at their tenant rows."""
+        t, tr = self.tier, self.tracer
+        slots = t.slot[hot_g].astype(np.int64)
+        with tr.span("queue_gather", plane=self.label) as sp:
+            keys, weights = sp.sync(ops.flush_rows_inputs(
+                self.ring.queue, t.hfill[hot_g], slots, cols))
+        if self.tracker is None:
+            with tr.span("update_rows", plane=self.label) as sp:
+                sp.sync(ops.update_rows(
+                    self.tables, self.spec, keys, rng, slots,
+                    weights=weights, uniform_rows=(total, hot_g),
+                    engine=self.engine))
+            return
+        rows_d = self._rows_d(hot_g)
+        cand, valid = topk.candidates(self._tracker_rows(rows_d), keys,
+                                      weights > 0)
+        with tr.span("update_score_rows", plane=self.label) as sp:
+            _, est = ops.update_score_rows(
+                self.tables, self.spec, keys, rng, slots, cand,
+                weights=weights, uniform_rows=(total, hot_g),
+                engine=self.engine)
+            sp.sync((self.tables, est))
+        self._scatter_tracker(rows_d, topk.reselect(cand, valid, est,
+                                                    self.track_top))
+
+    def _tier_spill(self, rows_g: np.ndarray, cols: int, rng, total: int
+                    ) -> None:
+        """Land one fill class of cold tenants from the host queue mirror
+        in the cold store (buffered spill): their tables and mirror rows
+        go up through the plane's link, one `ops.tier_spill` (with
+        tracking, scoring the candidates too) lands them with the uniforms
+        of their rows of the full grid, and the tables come back."""
+        t = self.tier
+        stack = self._link.up(t.cold, rows_g)
+        keys, weights = self._mirror_inputs(rows_g, cols)
+        if self.tracker is None:
+            ops.tier_spill(stack, self.spec, keys, rng, weights,
+                           (total, rows_g), engine=self.engine)
+        else:
+            rows_d = self._rows_d(rows_g)
+            cand, valid = topk.candidates(self._tracker_rows(rows_d), keys,
+                                          weights > 0)
+            _, est = ops.tier_spill(stack, self.spec, keys, rng, weights,
+                                    (total, rows_g), cand=cand,
+                                    engine=self.engine)
+            self._scatter_tracker(rows_d, topk.reselect(cand, valid, est,
+                                                        self.track_top))
+        self._link.down(stack, t.cold, rows_g)
+        self._note_spill(rows_g)
 
     def _flush_class_tracked(self, rng, cols: int, rows_g: np.ndarray
                              ) -> None:
@@ -438,12 +779,21 @@ class TenantPlane(_PlaneBase):
                 tk.filled[row].cpu().numpy())
 
     def query_rows(self, keys) -> torch.Tensor:
-        """(T, N) estimates, tenant-ordered: ONE fused dispatch."""
-        return ops.query_many(self.tables, self.spec, keys,
-                              engine=self.engine)
+        """(T, N) estimates, tenant-ordered: ONE fused dispatch.  Tiered:
+        the fused query serves the hot slots and `ops.tier_query` the
+        uploaded cold stack (the same kernel), reassembled in tenant order
+        on the device."""
+        if self.tier is None:
+            return ops.query_many(self.tables, self.spec, keys,
+                                  engine=self.engine)
+        return self._tiered_read(keys, lambda tables, rows, probes, hot: (
+            ops.query_many if hot else ops.tier_query)(
+                tables, self.spec, probes, engine=self.engine))
 
     def table_row(self, row: int) -> torch.Tensor:
-        return self.tables[row]
+        """One tenant's table: its slot of the hot stack, or its cold row
+        uploaded."""
+        return self._tenant_tables(row)
 
 
 class WindowPlane(_PlaneBase):
@@ -464,7 +814,8 @@ class WindowPlane(_PlaneBase):
                  seed: int = 0, track_top: Optional[int] = None,
                  metrics: Optional[obs.MetricsRegistry] = None,
                  tracer: Optional[obs.Tracer] = None, label: str = "w0",
-                 device=None, engine: str = "auto"):
+                 device=None, engine: str = "auto",
+                 tier: Optional[TierSpec] = None):
         self._init_plane(queue_capacity, seed, device, engine)
         self.wspec = wspec
         s = wspec.sketch
@@ -484,14 +835,21 @@ class WindowPlane(_PlaneBase):
                                                 plane=label)
         self._g_epoch: list = []
         self._g_lag: list = []
+        self._init_tier(tier, (wspec.buckets, s.depth, s.storage_width))
 
     @property
     def spec(self) -> SketchSpec:
         return self.wspec.sketch
 
+    def ring_tables(self, row: int) -> torch.Tensor:
+        """One tenant's (B, d, sw) ring on the device: a view of the leaf
+        (at its slot, tiered), or a cold tenant's ring uploaded."""
+        return self._tenant_tables(row)
+
     def win_view(self, row: int) -> w.WindowedSketch:
-        """One tenant's ring as a `WindowedSketch` view of the leaf."""
-        return w.WindowedSketch(tables=self.tables[row],
+        """One tenant's ring as a `WindowedSketch` view of the leaf (a
+        cold tenant's: its uploaded ring)."""
+        return w.WindowedSketch(tables=self.ring_tables(row),
                                 cursor=int(self.cursors[row]),
                                 spec=self.wspec, epoch=self.epochs[row])
 
@@ -511,13 +869,12 @@ class WindowPlane(_PlaneBase):
                                                 plane=self.label, tenant=name))
         self._g_lag.append(self.metrics.gauge("watermark_lag",
                                               plane=self.label, tenant=name))
-        zero = zeros((1, self.wspec.buckets, s.depth, s.storage_width),
-                     s.storage_dtype, self.device)
-        self.tables = torch.cat([signed_view(self.tables),
-                                 signed_view(zero)]).view(self.tables.dtype)
+        row = self._add_slot(zeros((1, self.wspec.buckets, s.depth,
+                                    s.storage_width), s.storage_dtype,
+                                   self.device))
         self._g_leaf_bytes.set(self.tables.numel()
                                * self.tables.element_size())
-        return self.ring.add_row()
+        return row
 
     def advance(self, row: int, ts, flush_cb) -> None:
         """Advance one tenant's watermark to own `ts` (see `advance_many`)."""
@@ -551,19 +908,35 @@ class WindowPlane(_PlaneBase):
         rot = np.flatnonzero(steps).astype(np.int32)
         if rot.size == 0:
             return
-        if self.ring.fill[rot].any():
+        fill = self.ring.fill if self.tier is None else self.tier.hfill
+        if fill[rot].any():
             flush_cb()
-        with self.tracer.span("window_rotate", plane=self.label,
-                              rows=int(rot.size)) as sp:
-            self.tables = sp.sync(ops.window_advance_rows(
-                self.tables, self.cursors, steps))
-        self._m_rotation_dispatches.inc()
+        if self.tier is None:
+            self._rotate(self.cursors, steps, rot)
+        else:
+            # hot rings rotate on the slot-ordered leaf in one masked
+            # zeroing; cold rings in the host store, the same mask
+            t = self.tier
+            st = t.slot_tenant
+            if st.size and steps[st].any():
+                self._rotate(self.cursors[st], steps[st], rot)
+            for row in rot:
+                if t.slot[row] < 0:
+                    w.cold_advance(t.cold[row], int(self.cursors[row]),
+                                   int(steps[row]))
         self.cursors = ((self.cursors + steps) % self.wspec.buckets).astype(
             np.int32)
         for row in rot:
             self.epochs[row] += int(steps[row])
             self._g_epoch[row].set(self.epochs[row])
         self._m_rotations.inc(int(steps.sum()))
+
+    def _rotate(self, cursors, steps, rot) -> None:
+        with self.tracer.span("window_rotate", plane=self.label,
+                              rows=int(rot.size)) as sp:
+            self.tables = sp.sync(ops.window_advance_rows(
+                self.tables, cursors, steps))
+        self._m_rotation_dispatches.inc()
 
     def flush(self, dense: bool = False) -> int:
         """Land every pending tenant's events in its ACTIVE bucket, on the
@@ -572,10 +945,18 @@ class WindowPlane(_PlaneBase):
         the (T, N) tenant grid; then (tracking on) ONE row-mapped
         `window_query_stacked` tracker refresh.  `dense=True` runs the
         reference's restack baseline instead: gather every tenant's active
-        bucket, one `update_many`, scatter back (the parity oracle)."""
+        bucket, one `update_many`, scatter back (the parity oracle).  A
+        tiered plane flushes through `_flush_tiered` and has no dense
+        baseline."""
         pending = self.pending()
         if pending == 0:
             return 0
+        if self.tier is not None:
+            if dense:
+                raise ValueError("dense flush is the all-resident baseline "
+                                 "pipeline; tiered planes have no resident "
+                                 "whole-plane layout to run it on")
+            return self._flush_tiered(pending)
         rng = self.rng.next()
         t = len(self.names)
         b = self.wspec.buckets
@@ -629,6 +1010,112 @@ class WindowPlane(_PlaneBase):
         self._note_flush(pending)
         return pending
 
+    def _flush_tiered(self, pending: int) -> int:
+        """Tiered window flush epoch: per fill class, hot tenants land in
+        their ACTIVE buckets through the flat row-mapped update an
+        all-resident plane issues (flat row slot * B + cursor, uniforms
+        at their tenant rows of the full grid) and cold tenants spill
+        their active buckets from the host mirror (`_tier_spill_window`);
+        then one cross-tier tracker refresh, the recency stamp and the
+        rebalance swap."""
+        t_ = self.tier
+        rng = self.rng.next()
+        total = len(self.names)
+        b = self.wspec.buckets
+        active = np.flatnonzero(t_.hfill).astype(np.int32)
+        tr = self.tracer
+        with tr.span("flush_epoch", plane=self.label,
+                     rows=int(active.size)) as ep:
+            for cols, rows_g in tiering.fill_classes(t_.hfill, active,
+                                                     t_.capw):
+                slot_g = t_.slot[rows_g]
+                hot_g = rows_g[slot_g >= 0]
+                cold_g = rows_g[slot_g < 0]
+                if hot_g.size:
+                    slots = t_.slot[hot_g].astype(np.int64)
+                    with tr.span("queue_gather", plane=self.label) as sp:
+                        keys, weights = sp.sync(ops.flush_rows_inputs(
+                            self.ring.queue, t_.hfill[hot_g], slots, cols))
+                    h = self.tables.shape[0]
+                    flat = self.tables.view((h * b,) + self.tables.shape[2:])
+                    with tr.span("window_update", plane=self.label) as sp:
+                        sp.sync(ops.update_rows(
+                            flat, self.spec, keys, rng,
+                            slots * b + self.cursors[hot_g],
+                            weights=weights, uniform_rows=(total, hot_g),
+                            engine=self.engine))
+                if cold_g.size:
+                    with tr.span("tier_spill", plane=self.label,
+                                 rows=int(cold_g.size)):
+                        self._tier_spill_window(cold_g, cols, rng, total)
+            if self.tracker is not None:
+                with tr.span("tracker_refresh", plane=self.label) as sp:
+                    self._refresh_topk_tiered(active)
+                    sp.sync(self.tracker.keys)
+            self.ring.reset()
+            t_.note_flush(active)
+            self._tier_rebalance()
+            ep.sync(self.tables)
+        self._note_flush(pending)
+        return pending
+
+    def _cold_buckets(self) -> np.ndarray:
+        """The cold store as (T * B, d, sw) bucket rows: a view, so
+        writes land in the store."""
+        t_ = self.tier
+        flat = t_.cold.view()
+        flat.shape = (-1,) + t_.row_shape[1:]  # raises rather than copy
+        return flat
+
+    def _tier_spill_window(self, rows_g: np.ndarray, cols: int, rng,
+                           total: int) -> None:
+        """Spill one fill class of cold windowed tenants: their ACTIVE
+        buckets (flat rows tenant * B + cursor of the cold store) go up,
+        land through one `ops.tier_spill` with the uniforms of their rows
+        of the full grid, and come back."""
+        flat = self._cold_buckets()
+        rows_b = rows_g.astype(np.int64) * self.wspec.buckets \
+            + self.cursors[rows_g]
+        stack = self._link.up(flat, rows_b)
+        keys, weights = self._mirror_inputs(rows_g, cols)
+        ops.tier_spill(stack, self.spec, keys, rng, weights, (total, rows_g),
+                       engine=self.engine)
+        self._link.down(stack, flat, rows_b)
+        self._note_spill(rows_g)
+
+    def _refresh_topk_tiered(self, active: np.ndarray) -> None:
+        """Cross-tier heap refresh: hot tenants score through the
+        row-mapped stacked window query on the device leaf (kernel 9),
+        cold tenants through the stacked query on their uploaded rings
+        (kernel 8; both equal their plain versions, which share one
+        bucket-order sum).  Each row's result is what the resident
+        service's single refresh gives: the refresh is row-independent
+        and both gathers run at the batch-max width."""
+        t_ = self.tier
+        cols = min(t_.capw,
+                   ops.CHUNK * -(-int(t_.hfill[active].max()) // ops.CHUNK))
+        hot = t_.slot[active] >= 0
+        for rows_a, is_hot in ((active[hot], True), (active[~hot], False)):
+            if rows_a.size == 0:
+                continue
+            rows_d = self._rows_d(rows_a)
+            wts = w.window_weights_stacked(self.cursors[rows_a],
+                                           self.wspec.buckets,
+                                           device=self.device)
+            if is_hot:
+                slots = t_.slot[rows_a].astype(np.int64)
+                keys, weights = ops.flush_rows_inputs(
+                    self.ring.queue, t_.hfill[rows_a], slots, cols)
+                tables, qrows = self.tables, slots
+            else:
+                keys, weights = self._mirror_inputs(rows_a, cols)
+                tables, qrows = self._link.up(t_.cold, rows_a), None
+            new = topk.refresh_stacked(
+                self._tracker_rows(rows_d), keys, weights > 0,
+                lambda ck, tb=tables, qr=qrows: ops.window_query_stacked(
+                    tb, self.spec, ck, wts, rows=qr, engine=self.engine))
+            self._scatter_tracker(rows_d, new)
+
     def _refresh_topk(self, rows, keys, weights) -> None:
         """Heap refresh of the flushed tenants: candidates scored by ONE
         row-mapped stacked window query on the leaf, each ring with its
@@ -659,14 +1146,17 @@ class WindowPlane(_PlaneBase):
         ring (rotation, expiry and `gamma` move window estimates without
         a flush) and keep the re-ordered heap: ONE row-mapped stacked
         window query, all on the device.  `rows_d` / `wts_d` are
-        `rescore_inputs` on the device."""
+        `rescore_inputs` on the device.  A cold tenant re-scores on its
+        uploaded ring (the stacked query without a row map)."""
         empty = torch.zeros((1, 0), dtype=torch.int32,
                             device=self.device).view(torch.uint32)
+        tables, i = self._tenant_stack(row)
+        qrows = None if i is None else [i]
         new = topk.refresh_stacked(
             self._tracker_rows(rows_d), empty, None,
             lambda ck: ops.window_query_stacked(
-                self.tables, self.spec, ck, wts_d, mode=mode,
-                engine=engine or self.engine, rows=[row]))
+                tables, self.spec, ck, wts_d, mode=mode,
+                engine=engine or self.engine, rows=qrows))
         self._scatter_tracker(rows_d, new)
 
     def topk_row(self, row: int, n_buckets: Optional[int] = None,
@@ -704,22 +1194,33 @@ class WindowPlane(_PlaneBase):
             wts = w.window_weights_stacked(
                 self.cursors[row:row + 1], self.wspec.buckets, n_buckets,
                 gamma, device=self.device)[0]
-        return ops.window_query_tables(self.tables[row], self.spec, keys, wts,
-                                       mode=mode,
+        return ops.window_query_tables(self.ring_tables(row), self.spec,
+                                       keys, wts, mode=mode,
                                        engine=engine or self.engine)
 
     def query_rows(self, keys) -> torch.Tensor:
         """(T, N) window estimates, tenant-ordered: ONE stacked launch over
         the whole leaf, each ring at its full-window sum (keys (N,) are
         shared by every tenant and read with ring stride 0, or (T, N) per
-        tenant)."""
-        return ops.window_query_stacked(self.tables, self.spec, keys,
-                                        self.full_weights(),
-                                        engine=self.engine)
+        tenant).  Tiered: one stacked query over the slot-ordered hot leaf
+        and one over the uploaded cold rings (the same kernel),
+        reassembled in tenant order on the device."""
+        if self.tier is None:
+            return ops.window_query_stacked(self.tables, self.spec, keys,
+                                            self.full_weights(),
+                                            engine=self.engine)
+        return self._tiered_read(keys, lambda tables, rows, probes, hot: (
+            ops.window_query_stacked(
+                tables, self.spec, probes,
+                w.window_weights_stacked(self.cursors[rows],
+                                         self.wspec.buckets,
+                                         device=self.device),
+                engine=self.engine)))
 
     def table_row(self, row: int) -> torch.Tensor:
-        """One tenant's ACTIVE bucket table."""
-        return self.tables[row, int(self.cursors[row])]
+        """One tenant's ACTIVE bucket table (a cold tenant's: of its
+        uploaded ring)."""
+        return self.ring_tables(row)[int(self.cursors[row])]
 
 
 def _rescore_for_admit(plane: "WindowPlane", row: int, ids, n_buckets=None,
@@ -750,14 +1251,15 @@ class CountService:
             raise ValueError("track_top must be positive")
         if probe is not None:
             raise _later("probe")
-        if tier is not None:
-            raise _later("tier")
+        if tier is not None and not isinstance(tier, TierSpec):
+            raise TypeError(f"tier must be a TierSpec, got {type(tier)}")
         ops._check_engine(engine)
         self.engine = engine
         self.default_spec = spec
         self.queue_capacity = int(queue_capacity)
         self.seed = int(seed)
         self.track_top = None if track_top is None else int(track_top)
+        self.tier = tier
         self._planes: dict[SketchSpec, TenantPlane] = {}
         self._wplanes: dict[w.WindowSpec, WindowPlane] = {}
         self._where: dict[str, tuple[object, int]] = {}
@@ -830,7 +1332,7 @@ class CountService:
             raise ValueError("tracker-fed admission needs the heavy-hitter "
                              "plane: construct the service with track_top=K")
         kw = dict(metrics=self.metrics, tracer=self.tracer,
-                  device=self.device, engine=self.engine)
+                  device=self.device, engine=self.engine, tier=self.tier)
         if window is not None:
             if spec is not None and spec != window.sketch:
                 raise ValueError("pass the sketch spec inside WindowSpec "
@@ -986,6 +1488,12 @@ class CountService:
         """Planes with buffered events (the host fill mirror says so)."""
         return [p for p in self.planes if p.pending()]
 
+    def tier_occupancy(self) -> dict[str, dict[str, int]]:
+        """Per-plane tier occupancy {plane label: {"hot": n, "cold": m}}
+        (empty for a service built without a TierSpec)."""
+        return {p.label: {"hot": p.tier.hot_count, "cold": p.tier.cold_count}
+                for p in self.planes if p.tier is not None}
+
     # ---- serving ----
 
     def query(self, name: str, keys, **window_kw) -> torch.Tensor:
@@ -1115,11 +1623,19 @@ class CountService:
 
     # ---- persistence ----
 
+    @staticmethod
+    def _plane_meta(p, base: dict) -> dict:
+        # v8: a tiered plane's membership and policy signals (its cold
+        # store is a leaf), so restore re-tiers deterministically
+        if p.tier is not None:
+            base["tier"] = p.tier.meta()
+        return base
+
     def _meta(self) -> dict:
-        """The manifest metadata, as the reference writes it (v8
-        untiered: the plane layout, the PRNG lanes, the admission
-        policies (v4), the metrics snapshot (v5) and the packed flag
-        (v6))."""
+        """The manifest metadata, as the reference writes it (v8: the
+        plane layout, the PRNG lanes, the admission policies (v4), the
+        metrics snapshot (v5), the packed flag (v6) and a tiered
+        service's TierSpec and plane memberships)."""
         meta = {
             "version": VERSION,
             "queue_capacity": self.queue_capacity,
@@ -1130,15 +1646,20 @@ class CountService:
             "metrics": self.metrics.snapshot(),
             "admission": {name: dataclasses.asdict(spec)
                           for name, spec in self._admission.items()},
-            "planes": [{"spec": _spec_meta(p.spec), "tenants": list(p.names),
-                        "rng_draws": p.rng.draws}
+            "planes": [self._plane_meta(p, {"spec": _spec_meta(p.spec),
+                                            "tenants": list(p.names),
+                                            "rng_draws": p.rng.draws})
                        for p in self._planes.values()],
-            "windows": [{"sketch": _spec_meta(p.spec),
-                         "buckets": p.wspec.buckets,
-                         "interval": p.wspec.interval,
-                         "tenants": list(p.names), "rng_draws": p.rng.draws}
+            "windows": [self._plane_meta(p, {"sketch": _spec_meta(p.spec),
+                                             "buckets": p.wspec.buckets,
+                                             "interval": p.wspec.interval,
+                                             "tenants": list(p.names),
+                                             "rng_draws": p.rng.draws})
                         for p in self._wplanes.values()],
         }
+        if self.tier is not None:
+            meta["tier"] = {"max_hot_tenants": self.tier.max_hot_tenants,
+                            "policy": self.tier.policy}
         if self.default_spec is not None:
             meta["spec"] = _spec_meta(self.default_spec)  # v1 reader compat
             meta["tenants"] = self.tenants
@@ -1149,14 +1670,23 @@ class CountService:
         ring `queue` and its `fill` (int32, as the reference writes it),
         with tracking `topk.{keys, estimates, filled}`; a window plane's
         `tables` is its (T, B, d, sw) leaf, beside the `cursor` and
-        `epoch` (-1: no watermark yet) mirrors.  with_topk defaults to
-        whether tracking is on (restore passes the manifest's answer)."""
+        `epoch` (-1: no watermark yet) mirrors.  A tiered plane's
+        `tables` is its (H, ...) hot stack, beside `cold_tables`, the
+        (T, ...) host cold store, and `queue` / `fill` are the
+        TENANT-indexed host mirrors (the slot-indexed device ring is
+        their gather, rebuilt on restore).  with_topk defaults to whether
+        tracking is on (restore passes the manifest's answer)."""
         if with_topk is None:
             with_topk = self.track_top is not None
 
         def leaf(p) -> dict:
-            out = {"tables": p.tables, "queue": p.ring.queue,
-                   "fill": p.ring.fill.astype(np.int32)}
+            if p.tier is None:
+                out = {"tables": p.tables, "queue": p.ring.queue,
+                       "fill": p.ring.fill.astype(np.int32)}
+            else:
+                out = {"tables": p.tables, "cold_tables": p.tier.cold,
+                       "queue": p.tier.hqueue,
+                       "fill": p.tier.hfill.astype(np.int32)}
             if with_topk:
                 tk = p.tracker
                 out["topk"] = {"keys": tk.keys, "estimates": tk.estimates,
@@ -1193,7 +1723,8 @@ class CountService:
         snapshot comes back with cold (T, track_top) heaps; one taken at
         another width has its heaps resized (`topk.resize_stacked`:
         shrinking keeps each row's best candidates, growing appends cold
-        slots).  A tiered manifest raises NotImplementedError."""
+        slots).  A tiered (v8) snapshot comes back tiered, with its
+        membership, cold stores and queue mirrors."""
         meta, step = checkpoint.load_metadata(root, step)
         if meta.get("version", 1) < 2:
             svc = cls._restore_v1(root, step, meta, track_top, device,
@@ -1217,17 +1748,15 @@ class CountService:
         """An empty service with the registry `meta` (v2+) describes: its
         planes in their saved order, the tenants with their admission
         policies; trackers at the saved width, or at `track_top` when
-        the snapshot had none."""
-        if "tier" in meta or any(
-                "tier" in pm
-                for pm in meta["planes"] + meta.get("windows", [])):
-            raise _later("tier")
+        the snapshot had none; tiered (v8) when the snapshot was, its
+        membership re-applied by `_load_tree`."""
         default = _spec_from_meta(meta["spec"]) if "spec" in meta else None
         saved_k = meta.get("track_top")
+        tier = TierSpec(**meta["tier"]) if "tier" in meta else None
         svc = cls(default, queue_capacity=meta["queue_capacity"],
                   seed=meta.get("seed", 0),
                   track_top=saved_k if saved_k is not None else track_top,
-                  device=device, engine=engine)
+                  device=device, engine=engine, tier=tier)
         admission_of = {name: adm.AdmissionSpec(**spec)
                         for name, spec in meta.get("admission", {}).items()}
         plane_of: dict[str, dict] = {}
@@ -1275,10 +1804,27 @@ class CountService:
                              f"match the plane's storage {p.tables.dtype}")
         p.rng.draws = int(pm.get("rng_draws", 0))
         p.tables = tables
-        p.ring.queue = leaves["queue"]
-        p.ring.fill = np.asarray(leaves["fill"], np.int64).copy()
         if has_topk:
             p.tracker = topk.TopK(**leaves["topk"])
+        if p.tier is None:
+            p.ring.queue = leaves["queue"]
+            p.ring.fill = np.asarray(leaves["fill"], np.int64).copy()
+            return
+        # tiered: the saved membership first, then the host mirrors (np
+        # copies: the tier mutates them in place), then the device ring
+        # rebuilt as the mirror's gather at the hot tenants
+        t = p.tier
+        tm = pm["tier"]
+        t.load_membership(tm["slot_tenant"], tm["last_active"], tm["hits"],
+                          tm["epoch"])
+        t.cold = np.array(leaves["cold_tables"]).astype(t.dtype, copy=False)
+        t.hqueue = np.array(leaves["queue"], np.uint32)
+        t.hfill = np.array(leaves["fill"], np.int64)
+        st = t.slot_tenant
+        if st.size:
+            p.ring.queue = p._link.up(t.hqueue, st)
+        p.ring.fill = t.hfill[st].copy()
+        p._tier_gauges()
 
     def _convert_packing(self, packed: bool) -> None:
         """Switch every plane's table storage layout in place
@@ -1293,6 +1839,9 @@ class CountService:
             if new != spec:
                 p.tables = _repack(p.tables, spec, new)
                 p.spec = new
+                if p.tier is not None:
+                    self._repack_cold(p, spec, new,
+                                      (new.depth, new.storage_width))
             planes[new] = p
         self._planes = planes
         wplanes: dict[w.WindowSpec, WindowPlane] = {}
@@ -1301,8 +1850,28 @@ class CountService:
             if new_sk != wspec.sketch:
                 p.tables = _repack(p.tables, wspec.sketch, new_sk)
                 p.wspec = dataclasses.replace(wspec, sketch=new_sk)
+                if p.tier is not None:
+                    self._repack_cold(p, wspec.sketch, new_sk,
+                                      (wspec.buckets, new_sk.depth,
+                                       new_sk.storage_width))
             wplanes[p.wspec] = p
         self._wplanes = wplanes
+
+    @staticmethod
+    def _repack_cold(p, old: SketchSpec, new: SketchSpec,
+                     row_shape: tuple) -> None:
+        """Repack a tiered plane's cold store with its hot stack, cell for
+        cell: each tenant's row goes up through the plane's link, is
+        repacked on the device (`_repack`) and comes back."""
+        t = p.tier
+        out = np.empty((t.cold.shape[0],) + tuple(row_shape),
+                       numpy_dtype(new.storage_dtype))
+        for i in range(out.shape[0]):
+            p._link.down(_repack(p._link.up(t.cold, [i]), old, new), out,
+                         [i])
+        t.cold = out
+        t.row_shape = tuple(row_shape)
+        t.dtype = out.dtype
 
     def _resize_trackers(self, k: int) -> None:
         """Re-arm every plane's heap stack at width k."""

@@ -17,8 +17,10 @@ buckets combines the per-bucket estimates in ONE kernel launch
 
 In the port a `WindowedSketch` is a view: `CountService`'s window planes
 keep every tenant's ring in one (T, B, d, w) leaf and hand out views of
-it.  `cold_advance`, `window_init` / `window_update` / `window_rotate` /
-`window_advance_to`, `decay` and `DecayedSketch` are later slices.
+it.  A tiered plane's cold tenants keep their rings in host memory and
+rotate them with `cold_advance`.  `window_init` / `window_update` /
+`window_rotate` / `window_advance_to`, `decay` and `DecayedSketch` are
+later slices.
 """
 from __future__ import annotations
 
@@ -100,6 +102,18 @@ def window_advance_steps(win: WindowedSketch, steps: int) -> WindowedSketch:
     epoch = None if win.epoch is None else win.epoch + steps
     return dataclasses.replace(win, tables=tables,
                                cursor=(win.cursor + steps) % b, epoch=epoch)
+
+
+def cold_advance(tables: np.ndarray, cursor: int, steps: int) -> np.ndarray:
+    """Watermark rotation of a COLD tenant's host (B, d, w) ring, IN
+    PLACE: the buckets `ops.rotation_mask` clears for this ring (the
+    `steps` after `cursor`, every one when steps >= B) are zeroed, so a
+    ring rotates the same way whichever tier it lives in.  Returns
+    `tables` (the reference returns a rotated copy; zeroing in place
+    writes only the cleared buckets of the cold store).  The caller owns
+    the cursor mirror."""
+    tables[ops.rotation_mask([cursor], [steps], tables.shape[0])[0]] = 0
+    return tables
 
 
 def window_weights_host(cursors, buckets: int,

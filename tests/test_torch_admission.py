@@ -155,8 +155,8 @@ def test_observe_and_admit_engines_match_jax(name):
             np.testing.assert_array_equal(x, y)
     for engine in ("xla", "auto"):
         with tops.audit_scope() as tally:
-            s, rows, mask = tadm.observe_and_admit(tsk.init(ts), ids, key,
-                                                   TASPEC, engine=engine)
+            s, rows, mask = tadm.observe_and_admit(
+                tsk.init(ts, device="cpu"), ids, key, TASPEC, engine=engine)
         assert dict(tally) == {"update": 1}
         np.testing.assert_array_equal(tc.to_numpy(s.table), want["xla"][0])
         np.testing.assert_array_equal(rows.numpy(), want["xla"][1])
@@ -174,7 +174,7 @@ def test_update_chunked_past_one_shot_size_equals_jax_update_xla():
         np.uint32)
     key = np.asarray([0, 9], np.uint32)
     want = jops.update_xla(jsk.init(js), jnp.asarray(ids), key)
-    got = tops.update_chunked(tsk.init(ts), ids, key)
+    got = tops.update_chunked(tsk.init(ts, device="cpu"), ids, key)
     np.testing.assert_array_equal(tc.to_numpy(got.table),
                                   np.asarray(want.table))
 
@@ -185,17 +185,19 @@ def test_observe_and_admit_validates_ids_and_engine():
     for bad, exc in (([-1], ValueError), ([0.5], TypeError),
                      ([1 << 33], ValueError)):
         with pytest.raises(exc):
-            tadm.observe_and_admit(tsk.init(ts), np.asarray(bad), key, TASPEC)
+            tadm.observe_and_admit(tsk.init(ts, device="cpu"),
+                                   np.asarray(bad), key, TASPEC)
     with pytest.raises(ValueError):
-        tadm.observe_and_admit(tsk.init(ts), [1], key, TASPEC,
+        tadm.observe_and_admit(tsk.init(ts, device="cpu"), [1], key, TASPEC,
                                engine="banana")
     # the kernels run on CUDA only: a CPU table asks for the plain engine
     with pytest.raises(ValueError, match="CUDA"):
-        tadm.observe_and_admit(tsk.init(ts), [1], key, TASPEC,
+        tadm.observe_and_admit(tsk.init(ts, device="cpu"), [1], key, TASPEC,
                                engine="kernel")
     # a uint32 tensor passes as it is
     ids = torch.tensor([1, 2], dtype=torch.int32).view(torch.uint32)
-    _, rows, mask = tadm.observe_and_admit(tsk.init(ts), ids, key, TASPEC)
+    _, rows, mask = tadm.observe_and_admit(tsk.init(ts, device="cpu"), ids,
+                                           key, TASPEC)
     assert rows.shape == (2,) and mask.shape == (2,)
 
 

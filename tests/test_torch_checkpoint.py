@@ -434,15 +434,29 @@ def test_resize_stacked_matches_jax_ties_included(k):
     np.testing.assert_array_equal(np.asarray(want.filled), got.filled.numpy())
 
 
-def test_tiered_snapshot_raises(tmp_path):
+def test_tiered_snapshot_restores(tmp_path):
+    """A tiered JAX snapshot (v8: membership in the manifest, the cold
+    store and the queue mirrors among the leaves) restores into a tiered
+    port service holding the same leaves, answering alike."""
     js, _ = _specs("CMS32")
     a = JService(js, tenants=("x", "y", "z"), queue_capacity=256,
                  track_top=4, tier=TierSpec(max_hot_tenants=1))
     for n in ("x", "y", "z"):
         a.enqueue(n, np.arange(20, dtype=np.uint32))
     a.snapshot(str(tmp_path), step=1)
-    with pytest.raises(NotImplementedError, match="tier"):
-        TService.restore(str(tmp_path), device="cpu")
+    b = TService.restore(str(tmp_path), device="cpu")
+    assert b.tier_occupancy() == {"p0": {"hot": 1, "cold": 2}}
+    _, tree = convert.service_to_numpy(b)
+    want = jax.tree_util.tree_map(np.asarray, a._tree())
+    for key in ("tables", "cold_tables", "queue", "fill"):
+        got_leaf, want_leaf = tree["planes"][0][key], want["planes"][0][key]
+        assert got_leaf.dtype == want_leaf.dtype
+        np.testing.assert_array_equal(got_leaf, want_leaf)
+    probes = np.arange(24, dtype=np.uint32)
+    qa, qb = a.query_all(probes), b.query_all(probes)
+    for n in ("x", "y", "z"):
+        np.testing.assert_array_equal(np.asarray(qa[n]), qb[n].numpy())
+        np.testing.assert_array_equal(np.asarray(a.topk(n)[0]), b.topk(n)[0])
 
 
 # --------------------------------------------------------------------------

@@ -148,7 +148,7 @@ def test_spec_geometry_matches(name, packed, budget):
     assert t.cells_per_lane == j.cells_per_lane
     assert t.storage_width == j.storage_width
     assert t.memory_bytes == j.memory_bytes
-    sk_t = tsk.init(t)
+    sk_t = tsk.init(t, device="cpu")
     assert tc.to_numpy(sk_t.table).dtype == np.dtype(j.storage_dtype)
 
 

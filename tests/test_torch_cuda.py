@@ -9,7 +9,9 @@ Every kernel must land exactly what its plain PyTorch version lands on
 the same device: equal cell states, ring cells and float32 estimates
 (the kernels are built with -fmad=false and no fast math, so each float
 operation rounds as torch's own CUDA ops do).  `chip_smoke.py` repeats
-the comparison at the full-size shapes.
+the comparison at the full-size shapes.  The tiering cases hold the
+tier ops to their plain versions, tiered services to untiered ones and
+to the plain engine, and the hot-only epoch to no synchronize.
 """
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from repro_torch.core import sketch as tsk
 from repro_torch.core.counters import signed_view
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sketch as ksk
-from repro_torch.stream import CountService, WindowSpec
+from repro_torch.stream import CountService, TierSpec, WindowSpec
 from repro_torch.stream import window as tw
 
 FORMATS = [("CMS32", False), ("CMLS16", False), ("CMLS16", True),
@@ -1026,3 +1028,221 @@ def test_snapshot_on_the_card_restores_on_the_card_and_the_cpu(cuda,
         for other in others:
             kb, eb = other.topk(n)
             assert np.array_equal(ka, kb) and np.array_equal(ea, eb)
+
+
+# --------------------------------------------------------------------------
+# hot/cold tiering on the card
+# --------------------------------------------------------------------------
+
+def _spill_case(spec, rng, device):
+    """A cold stack of 3 tenants whose grid rows (7, 2, 5) of a (9, N)
+    grid are not arange(3), ragged live fills, and 70 candidates a row."""
+    cells = _random_cells(rng, spec, (3, spec.depth), device)
+    n = 3 * ksk.CHUNK + 200
+    keys = torch.from_numpy((rng.zipf(1.3, (3, n)) % 900).astype(np.int64))
+    keys = tc.from_i64(keys, torch.uint32).to(device)
+    fill = torch.tensor([[n], [1500], [40]], device=device)
+    weights = (torch.arange(n, device=device)[None, :] < fill).to(
+        torch.float32)
+    cand = tc.from_i64(torch.from_numpy((rng.zipf(1.3, (3, 70)) % 900)
+                                        .astype(np.int64)),
+                       torch.uint32).to(device)
+    return cells, keys, weights, cand, (9, np.array([7, 2, 5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scored", [True, False], ids=["cand", "no_cand"])
+@pytest.mark.parametrize("name,packed", FORMATS)
+def test_tier_spill_equals_plain_and_runs_kernel_2_or_5(cuda, name, packed,
+                                                        scored):
+    """`ops.tier_spill` on the card: kernel 2 (with candidates) or kernel
+    5 on the uploaded stack, drawing at grid rows that are not arange(C);
+    equal to its plain version on the card, tallied as tier_spill only."""
+    spec = _spec(name, packed)
+    rng = np.random.default_rng(31)
+    cells, keys, weights, cand, grid = _spill_case(spec, rng, cuda)
+    key = np.asarray([3, 77], np.uint32)
+    kw = dict(cand=cand) if scored else {}
+    plain_tab = cells.clone()
+    plain = ops.tier_spill(plain_tab, spec, keys, key, weights, grid,
+                           engine="plain", **kw)
+    ksk.reset_kernel_launches()
+    with ops.audit_scope() as tally:
+        got = ops.tier_spill(cells, spec, keys, key, weights, grid, **kw)
+    torch.cuda.synchronize()
+    launches = ksk.kernel_launches()
+    assert dict(tally) == {"tier_spill": 1}
+    want = {k: 0 for k in launches}
+    want["fused_update_score" if scored else "fused_update"] = 1
+    assert launches == want
+    if scored:
+        (got, est), (plain, pest) = got, plain
+        assert torch.equal(est, pest)
+    assert got is cells
+    assert torch.equal(signed_view(got), signed_view(plain_tab))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,packed", FORMATS)
+def test_tier_query_equals_plain(cuda, name, packed):
+    spec = _spec(name, packed)
+    rng = np.random.default_rng(32)
+    cells = _random_cells(rng, spec, (5, spec.depth), cuda)
+    probes = rng.integers(0, 2**32, (5, 300), dtype=np.uint64).astype(
+        np.uint32)
+    ksk.reset_kernel_launches()
+    got = ops.tier_query(cells, spec, probes)
+    assert ksk.kernel_launches()["fused_query"] == 1
+    assert torch.equal(got, ops.tier_query(cells, spec, probes,
+                                           engine="plain"))
+    assert torch.equal(ops.tier_query(cells, spec, probes[0])[3],
+                       ops.tier_query(cells[3:4], spec, probes[0])[0])
+
+
+def _tiered_pair_on_card(device, engine, wspec, hot):
+    tier = TierSpec(max_hot_tenants=hot)
+    svcs = []
+    for t in (tier, None):
+        s = CountService(wspec.sketch, tenants=[f"t{i}" for i in range(8)],
+                         queue_capacity=2048, track_top=8, device=device,
+                         engine=engine, tier=t)
+        for n in ("x", "y", "z", "u", "v"):
+            s.add_tenant(n, window=wspec)
+        svcs.append(s)
+    return svcs
+
+
+def _churn(svcs, rng, epochs=6):
+    names = [f"t{i}" for i in range(8)]
+    wnames = ["x", "y", "z", "u", "v"]
+    ts = 0.0
+    for e in range(epochs):
+        group = [names[(3 * e + i) % 8] for i in range(3)]
+        wgroup = [wnames[(2 * e + i) % 5] for i in range(2)]
+        ev = {n: rng.zipf(1.3, 500).astype(np.uint32) % 999 for n in group}
+        ts += float(rng.exponential(50.0))
+        wev = {n: rng.zipf(1.3, 400).astype(np.uint32) % 999 for n in wgroup}
+        for s in svcs:
+            s.enqueue_many(ev)
+            s.enqueue_many(wev, ts=ts)
+            s.flush()
+
+
+def _trees_equal(a, b):
+    _, ta = convert.service_to_numpy(a)
+    _, tb = convert.service_to_numpy(b)
+    for kind in ("planes", "windows"):
+        for la, lb in zip(ta[kind], tb[kind]):
+            assert la.keys() == lb.keys()
+            for key, va in la.items():
+                if isinstance(va, dict):
+                    for sub, x in va.items():
+                        assert np.array_equal(x, lb[key][sub]), (key, sub)
+                else:
+                    assert np.array_equal(va, lb[key]), key
+
+
+@pytest.mark.cuda
+def test_tiered_services_equal_untiered_after_churn(cuda):
+    """A tiered tracked plane (3 of 8 tenants hot) and a tiered windowed
+    plane (2 of 5 hot) on the kernels, after a churn stream with swaps
+    and rotations: `stacked_tables`, `query_all`, windowed `query` and
+    `topk` equal the untiered service's, and every leaf (cold stores and
+    mirrors included) equals the tiered service's on the plain engine."""
+    wspec = WindowSpec(sketch=_spec("CMLS16", True), buckets=4,
+                       interval=60.0)
+    ksk.reset_kernel_launches()
+    tiered, untiered = _tiered_pair_on_card(cuda, "auto", wspec, 3)
+    _churn((tiered, untiered), np.random.default_rng(41))
+    plain, _ = _tiered_pair_on_card(cuda, "plain", wspec, 3)
+    _churn((plain,), np.random.default_rng(41))
+    assert tiered.metrics.counter("tier_promotions", plane="p0").value > 0
+    assert tiered.metrics.counter("tier_promotions", plane="w0").value > 0
+    for pt, pu in zip(tiered.planes, untiered.planes):
+        assert torch.equal(signed_view(pt.stacked_tables()),
+                           signed_view(pu.tables))
+    probes = np.arange(200, dtype=np.uint32)
+    qt, qu = tiered.query_all(probes), untiered.query_all(probes)
+    for n in qt:
+        assert torch.equal(qt[n], qu[n]), n
+    for n in ("x", "y", "z", "u", "v"):
+        for kw in ({}, {"n_buckets": 2}, {"gamma": 0.8}, {"mode": "max"}):
+            assert torch.equal(tiered.query(n, probes, **kw),
+                               untiered.query(n, probes, **kw)), (n, kw)
+    for n in tiered.tenants:
+        ka, ea = tiered.topk(n)
+        kb, eb = untiered.topk(n)
+        assert np.array_equal(ka, kb) and np.array_equal(ea, eb), n
+    launches = ksk.kernel_launches()
+    assert all(launches[k] > 0 for k in launches
+               if k != "queue_append_dense"), launches
+    plain.query_all(probes)
+    for n in tiered.tenants:
+        plain.topk(n)
+    _trees_equal(tiered, plain)
+
+
+@pytest.mark.cuda
+def test_hot_only_tiered_epoch_does_not_synchronize(cuda):
+    """With tiering on, an `enqueue_many` to hot tenants, a flush epoch
+    where only hot tenants are active (no spill, no swap), a windowed
+    hot-only epoch that rotates, and an `enqueue_many` that reaches cold
+    tenants run under torch.cuda.set_sync_debug_mode("error"); the state
+    then equals the plain engine's on the same stream."""
+    wspec = WindowSpec(sketch=_spec("CMLS16", False), buckets=4,
+                       interval=60.0)
+    rng = np.random.default_rng(43)
+    ev = {f"t{i}": rng.zipf(1.3, 600).astype(np.uint32) % 999
+          for i in range(3)}
+    wev = [({n: rng.zipf(1.3, 300).astype(np.uint32) % 999
+             for n in ("x", "y")}, ts) for ts in (610.0, 700.0)]
+    cold_ev = {n: rng.zipf(1.3, 200).astype(np.uint32) % 999
+               for n in ("t1", "t6", "t7", "z", "v")}
+    out = []
+    for engine in ("auto", "plain"):
+        svc, _ = _tiered_pair_on_card(cuda, engine, wspec, 3)
+        svc.enqueue_many({n: np.arange(4, dtype=np.uint32)
+                          for n in ("x", "y")}, ts=600.0)
+        svc.flush()
+        torch.cuda.synchronize()
+        before = torch.cuda.get_sync_debug_mode()
+        if engine == "auto":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with ops.audit_scope() as tally:
+                svc.enqueue_many(ev)
+                svc.flush()
+                for w_ev, ts in wev:
+                    svc.enqueue_many(w_ev, ts=ts)
+                    svc.flush()
+            svc.enqueue_many(cold_ev)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
+        assert "tier_spill" not in tally and "tier_promote" not in tally
+        assert tally["window_advance_rows"] == 1
+        out.append(svc)
+    _trees_equal(*out)
+
+
+@pytest.mark.cuda
+def test_enqueue_to_a_cold_tenant_launches_nothing(cuda):
+    """An `enqueue` or `enqueue_many` that reaches only cold tenants
+    touches the host mirror alone: no kernel launch, no op tally, the
+    device ring unchanged."""
+    wspec = WindowSpec(sketch=_spec("CMS32", False), buckets=4,
+                       interval=60.0)
+    svc, _ = _tiered_pair_on_card(cuda, "auto", wspec, 3)
+    ring = [signed_view(p.ring.queue).clone() for p in svc.planes]
+    ksk.reset_kernel_launches()
+    with ops.audit_scope() as tally:
+        svc.enqueue("t5", np.arange(100, dtype=np.uint32))
+        svc.enqueue_many({"t6": np.arange(50, dtype=np.uint32),
+                          "t7": np.arange(70, dtype=np.uint32)})
+        svc.enqueue("v", np.arange(30, dtype=np.uint32), ts=5.0)
+    torch.cuda.synchronize()
+    assert dict(tally) == {}
+    assert all(v == 0 for v in ksk.kernel_launches().values())
+    for p, r in zip(svc.planes, ring):
+        assert torch.equal(signed_view(p.ring.queue), r)
+    assert svc.planes[0].tier.hfill[5:8].tolist() == [100, 50, 70]

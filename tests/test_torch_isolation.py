@@ -45,7 +45,8 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.convert", "repro_torch.launch.serve_counts",
               "repro_torch.core.prng", "repro_torch.core.sketch",
               "repro_torch.core.staging", "repro_torch.core.admission",
-              "repro_torch.train.checkpoint"):
+              "repro_torch.core.device", "repro_torch.core.sharded",
+              "repro_torch.stream.tiering", "repro_torch.train.checkpoint"):
         assert m in res["modules"]
 
 
@@ -59,8 +60,8 @@ def no_cuda():
 def test_entry_points_without_device_raise_without_cuda(no_cuda):
     from repro_torch.core import CMLS16, SketchSpec
     from repro_torch.launch import serve_counts
-    from repro_torch.stream import (CountService, TenantPlane, WindowPlane,
-                                    WindowSpec)
+    from repro_torch.stream import (CountService, TenantPlane, TierSpec,
+                                    WindowPlane, WindowSpec)
     spec = SketchSpec(width=256, counter=CMLS16)
     with pytest.raises(RuntimeError, match="CUDA"):
         CountService(spec, tenants=["a"], track_top=4)
@@ -72,6 +73,20 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         WindowPlane(WindowSpec(sketch=spec, buckets=2, interval=1.0), 128)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_counts.main(["--tenants", "1", "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CountService(spec, tenants=["a"], tier=TierSpec(max_hot_tenants=1))
+
+
+def test_sketch_init_without_device_raises_without_cuda(no_cuda):
+    """`core.sketch.init` runs on CUDA unless asked for the CPU: without a
+    GPU, no device raises, and device="cpu" builds the sketch."""
+    from repro_torch.core import CMLS16, SketchSpec, sketch
+    spec = SketchSpec(width=256, counter=CMLS16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sketch.init(spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sketch.init(spec, device="cuda")
+    assert sketch.init(spec, device="cpu").table.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):

@@ -15,9 +15,6 @@ apart where a stochastic rounding threshold moved; the bound is at most
 estimates within 8 ulp where the cells agree.  Measured on this stream:
 no cell differs.
 """
-import json
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +25,13 @@ from repro.core import counters as jc
 from repro.core import sketch as jsk
 from repro.kernels import ops as jops
 from repro.stream import CountService as JService
+from repro.stream import TierSpec as JTierSpec
 from repro_torch import convert
 from repro_torch.core import counters as tc
 from repro_torch.core import sketch as tsk
 from repro_torch.kernels import ops as tops
 from repro_torch.stream import CountService as TService
+from repro_torch.stream import TierSpec as TTierSpec
 
 NAMES = ["a", "b", "c"]
 CAP = 2048
@@ -220,40 +219,66 @@ def test_service_to_numpy_round_trips_through_service_from_numpy():
             assert np.array_equal(pa[key], pb[key])
 
 
-def _tiered_manifest(svc, root):
-    """Snapshot `svc` and mark its manifest tiered, as a tiered
-    reference service writes it (service-level and per-plane)."""
-    svc.snapshot(root, 1)
-    path = os.path.join(root, "step_00000001", "manifest.json")
-    with open(path) as f:
-        doc = json.load(f)
-    doc["metadata"]["tier"] = {"max_hot_tenants": 1, "policy": "lru"}
-    doc["metadata"]["planes"][0]["tier"] = {}
-    with open(path, "w") as f:
-        json.dump(doc, f)
-    return root
+def _tiered_pair(seed=3, cap=CAP):
+    """`_pair`'s CMS32 services with one hot tenant a plane."""
+    js, ts = _specs("CMS32", False)
+    a = JService(js, tenants=NAMES, queue_capacity=cap, seed=seed,
+                 track_top=8, tier=JTierSpec(max_hot_tenants=1))
+    b = TService(ts, tenants=NAMES, queue_capacity=cap, seed=seed,
+                 track_top=8, tier=TTierSpec(max_hot_tenants=1),
+                 device="cpu")
+    jm, tm = _specs("CMS32", False, width=256)
+    a.add_tenant("m", spec=jm)
+    b.add_tenant("m", spec=tm)
+    return a, b
 
 
-def _tier_state(svc):
-    meta, tree = convert.service_to_numpy(svc)
-    meta["tier"] = {"max_hot_tenants": 1, "policy": "lru"}
-    return convert.service_from_numpy(meta, tree, device="cpu")
+@pytest.mark.parametrize("way", ["snapshot", "convert"])
+def test_tiered_state_crosses_over_mid_stream(way, tmp_path):
+    """A tiered JAX service, carried into the port mid-stream through a
+    v8 snapshot or through `convert` (membership, cold stores, queue
+    mirrors, trackers, pending events), then continued in both packages:
+    the same dispatch audit, leaves and answers (CMS32: exact)."""
+    a, first = _tiered_pair()
+    _stream(a, first, steps=2, seed=5)
+    assert a.dirty_planes
+    if way == "snapshot":
+        a.snapshot(str(tmp_path), 1)
+        b = TService.restore(str(tmp_path), device="cpu")
+    else:
+        b = convert.service_from_numpy(
+            a._meta(), jax.tree_util.tree_map(np.asarray, a._tree()),
+            device="cpu")
+    assert b.tier_occupancy() == a.tier_occupancy() == {
+        "p0": {"hot": 1, "cold": 2}, "p1": {"hot": 1, "cold": 0}}
+    assert _compare(a, b, "CMS32", False) == 0
+    audit = _stream(a, b, steps=2, seed=6)
+    audit(lambda: a.flush(), lambda: b.flush())
+    _reads(a, b, "CMS32", audit)
+    assert _compare(a, b, "CMS32", False) == 0
 
 
-@pytest.mark.parametrize("call", [
-    lambda s, d: tsk.update_batched(s.sketch_of("a"), torch.zeros(2), [0, 0],
-                                    damp_alpha=0.5),
-    lambda s, d: type(s).restore(_tiered_manifest(s, d), device="cpu"),
-    lambda s, d: _tier_state(s),
-])
-def test_out_of_slice_features_raise(call, tmp_path):
+def test_out_of_slice_features_raise(tmp_path):
     _, ts = _specs("CMS32", False)
     svc = TService(ts, tenants=["a"], track_top=4, device="cpu")
     with pytest.raises(NotImplementedError):
-        call(svc, str(tmp_path))
+        tsk.update_batched(svc.sketch_of("a"), torch.zeros(2), [0, 0],
+                           damp_alpha=0.5)
 
 
-@pytest.mark.parametrize("kw", [dict(tier=object()), dict(probe=object())])
+@pytest.mark.parametrize("tier,exc", [
+    (lambda: TTierSpec(max_hot_tenants=0), ValueError),
+    (lambda: TTierSpec(max_hot_tenants=2, policy="random"), ValueError),
+    (lambda: object(), TypeError)], ids=["no_slots", "bad_policy", "object"])
+def test_bad_tier_spec_raises(tier, exc):
+    """A TierSpec with no hot slot or an unknown policy raises ValueError,
+    as the reference's does; something else than a TierSpec TypeError."""
+    _, ts = _specs("CMS32", False)
+    with pytest.raises(exc):
+        TService(ts, track_top=4, tier=tier(), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(probe=object())])
 def test_out_of_slice_construction_raises(kw):
     _, ts = _specs("CMS32", False)
     args = dict(track_top=4, device="cpu")

@@ -101,12 +101,14 @@ def test_update_batched_past_one_shot_limit():
     key = np.asarray([9, 1], np.uint32)
     a = jsk.update_batched(jsk.init(js), jnp.asarray(keys), key,
                            weights=jnp.asarray(w))
-    b = tsk.update_batched(tsk.init(ts), torch.from_numpy(keys.astype(
-        np.int64)), key, weights=torch.from_numpy(w))
+    b = tsk.update_batched(tsk.init(ts, device="cpu"),
+                           torch.from_numpy(keys.astype(np.int64)), key,
+                           weights=torch.from_numpy(w))
     np.testing.assert_array_equal(tc.to_numpy(b.table), np.asarray(a.table))
     with pytest.raises(NotImplementedError):
-        tsk.update_batched(tsk.init(ts), torch.zeros(3, dtype=torch.int64),
-                           key, damp_alpha=0.5)
+        tsk.update_batched(tsk.init(ts, device="cpu"),
+                           torch.zeros(3, dtype=torch.int64), key,
+                           damp_alpha=0.5)
 
 
 def test_update_many_and_rows_switch_to_one_shot_past_limit():
@@ -221,9 +223,9 @@ def test_update_and_update_xla_match_jax():
     keys = np.random.default_rng(4).zipf(1.3, 2500).astype(np.uint32)
     key = np.asarray([1, 1], np.uint32)
     a = jops.update(jsk.init(js), jnp.asarray(keys), key)
-    b = tops.update(tsk.init(ts), keys, key)
+    b = tops.update(tsk.init(ts, device="cpu"), keys, key)
     _cells_close(tc.to_numpy(b.table), np.asarray(a.table), ts)
-    c = tops.update_xla(tsk.init(ts), keys, key)
+    c = tops.update_xla(tsk.init(ts, device="cpu"), keys, key)
     np.testing.assert_array_equal(tc.to_numpy(c.table),
                                   tc.to_numpy(b.table))
 

@@ -140,7 +140,31 @@ exit, no result line) if anything disagrees:
                 bytes, promotions, demotions, peak device bytes,
                 tier_memory_bytes and the host bytes each tiered plane
                 pins, snapshot and restore GiB/s;
- 11. profiles -- last, since a torch.profiler session slows the process's
+ 11. algebra and probe -- at full width (width 1,048,576, depth 2):
+                (a) decayed_init(history=8) (a (9, 2, 1,048,576) leaf) in
+                every format through 12 decayed_update of 65,536 Zipf
+                keys, then decayed_query of 1,024 probes, ONE kernel-7
+                launch equal to engine="plain"; (b) a window_init ring
+                of 8 buckets (CMLS16 and CMS32) through window_update,
+                window_rotate and window_advance_to (a jump past the
+                ring included), window_query full / n_buckets=3 /
+                gamma=0.8 / max equal to the plain engine; (c) merge
+                (max, estimate_sum), decay, update_exact on 8,192 events
+                and the damped update_batched on the card, each against
+                the same port function on the CPU (CMS32 equal, log cells
+                one state apart on at most 1e-4 of them; estimate-space
+                sums of merge and decay within 5 standard deviations of
+                the stochastic re-encode), update_exact
+                events/s; (d) the tracked service of phase 3 with an
+                AccuracyProbe(rate=0.05, capacity=4096) through 8
+                enqueue_many (under set_sync_debug_mode("error")) and a
+                flush: shadow counts and ARE deciles equal the plain
+                engine's; record seconds and the median host-time ratio
+                of an epoch with / without the probe in interleaved
+                pairs; (e) to_prometheus / to_chrome_trace of the
+                phase's registry and tracer written and parsed back;
+                decayed_rotate and decayed_query times;
+ 12. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
                 counted), one tracked and one windowed `admit` (their
@@ -151,8 +175,8 @@ exit, no result line) if anything disagrees:
                 order by one index kernel: tools/time_read_kernels.py),
                 one epoch of each tiered regime (hot-only, all, churn)
                 and one tiered windowed epoch (synchronizes, copies,
-                cudaLaunchKernel), then the append wrappers' host time
-                again.
+                cudaLaunchKernel), kernel 7 alone on phase 11's decayed
+                leaf, then the append wrappers' host time again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -236,7 +260,7 @@ def timed(fn, reps: int, setup=None) -> dict:
     """A kernel wrapper's times: "ms", CUDA events around one call
     (`cuda_ms`), and "host_us", the host time of one call in us
     (perf_counter around it, the card idle before it); "timed" keeps fn
-    and setup for the kernel-alone profile of phase 11."""
+    and setup for the kernel-alone profile of phase 12."""
     ms = cuda_ms(fn, reps, setup)
     total = 0.0
     for _ in range(reps):
@@ -1192,7 +1216,7 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     versions and bytes bounds; the windowed ingest rate and query_all
     latency with kernels and with the plain engine.  Returns (kernel
     report, end-to-end numbers, the drive of one more windowed epoch for
-    the profile of phase 11)."""
+    the profile of phase 12)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sketch as ksk
     from repro_torch.kernels import ops
@@ -1288,7 +1312,7 @@ def window_times(dev, wsvc, keep, stream_rng, ts: float):
     for rep in report.values():
         rep["library_ms"] = None
     # the card's random-read floor of kernels 7-9: each distinct word a
-    # call reads, once, in random order (timed alone in phase 11)
+    # call reads, once, in random order (timed alone in phase 12)
     import time_read_kernels as trk
     for name, keys, at in (
             ("window_query", one_keys[None], [0]),
@@ -1960,7 +1984,7 @@ def admit_latency(svc, names, ids, kw) -> dict:
 def admission_phase(dev, spec, stream):
     """Phase 9: admission and snapshot/restore at full size.  Returns
     (kernel launches summed over its paths, the numbers it reports, the
-    drives of one tracked and one windowed admit for phase 11's
+    drives of one tracked and one windowed admit for phase 12's
     profile)."""
     from repro_torch.launch import serve_counts as sc
     aspec = sc.EMB_IDS
@@ -2393,7 +2417,7 @@ def tiering_phase(dev, spec, stream):
     """Phase 10: hot/cold tiering at full size, (a)-(d).  Returns (kernel
     launches summed over its paths, the numbers it reports, the drives
     of one profiled epoch of each tracked regime and of the windowed
-    stream for phase 11)."""
+    stream for phase 12)."""
     from repro_torch.launch import serve_counts as sc
     from repro_torch.stream import TierSpec, tier_memory_bytes
     t0 = time.perf_counter()
@@ -2434,7 +2458,7 @@ def tiering_phase(dev, spec, stream):
                 + res["snapshot_tracked"]["launches"][k]
                 + res["snapshot_windowed"]["launches"][k] for k in l_a}
 
-    # the drives phase 11 profiles: one epoch of each tracked regime on the
+    # the drives phase 12 profiles: one epoch of each tracked regime on the
     # tiered service as it stands then, and one windowed epoch
     def hot_now() -> list:
         return [int(x) for x in t_svc.planes[0].tier.slot_tenant]
@@ -2461,6 +2485,401 @@ def tiering_phase(dev, spec, stream):
         f"pinned host bytes per tiered plane {res['pinned_bytes']} beside "
         f"tier_memory_bytes {res['tier_memory_bytes']}")
     return launches, res, drives, (t_svc, w_svc)
+
+
+# ---- phase 11 of slice 9: the sketch and window algebra, and the probe ------
+
+ALG_HISTORY = 8        # decayed_init(history=8): a (9, 2, 1,048,576) leaf
+ALG_UPDATES = 12       # decayed_update calls of ALG_KEYS keys
+ALG_KEYS = 65_536
+ALG_GAMMA = 0.7
+EXACT_EVENTS = 8_192   # update_exact events held card against CPU
+DAMP_ALPHA = 0.5
+PROBE_RATE = 0.05
+PROBE_CAPACITY = 4096
+PROBE_PAIRS = 5        # interleaved probe-on / probe-off timed epochs
+CELL_BOUND = 1e-4      # log cells one state apart, card against CPU
+
+
+def zipf_keys(rng, n: int) -> np.ndarray:
+    return (rng.zipf(1.3, n) % 1_000_000).astype(np.uint32)
+
+
+def cells_apart(got, want, spec, what: str) -> int:
+    """Card and CPU storage tables of one spec: CMS32 equal; log cells
+    one state apart at most, on at most CELL_BOUND of the cells.  Returns
+    the count of differing cells."""
+    from repro_torch.core import sketch as sk
+    a = sk.logical_table(got.cpu(), spec)
+    b = sk.logical_table(want.cpu(), spec)
+    diff = (a - b).abs()
+    n = int((diff != 0).sum())
+    bound = 0 if spec.counter.kind == "linear" else CELL_BOUND * diff.numel()
+    if n > bound or int(diff.max()) > 1:
+        fail(f"{what}: {n} of {diff.numel()} cells differ between the card "
+             f"and the CPU (largest {int(diff.max())} states; bound "
+             f"{bound:.0f})")
+    return n
+
+
+def estimate_sum(table, spec) -> float:
+    from repro_torch.core import sketch as sk
+    return float(spec.counter.decode(sk.logical_table(table, spec)).double()
+                 .sum())
+
+
+def unbiased(table, want: float, spec, what: str) -> float:
+    """The re-encoded table's estimate-space sum against `want`: a
+    stochastic re-encode is unbiased, each cell's error below one point
+    mass of its state with variance at most point_mass^2 / 4, so the sum
+    must lie within 5 of those standard deviations.  Returns the sum's
+    ratio to `want`."""
+    from repro_torch.core import sketch as sk
+    got = estimate_sum(table, spec)
+    pm = spec.counter.point_mass(sk.logical_table(table, spec)).double()
+    sigma = float((pm.square().sum() / 4).sqrt())
+    if abs(got - want) > 5 * sigma:
+        fail(f"{what}: estimate-space sum {got} vs {want} (sigma {sigma})")
+    return got / want
+
+
+def decayed_check(dev, formats, probes) -> tuple:
+    """(a): per format, decayed_init(history=8) at full width through
+    ALG_UPDATES decayed_update calls of Zipf keys, then decayed_query of
+    the probes with kernel 7 (ONE launch) equal to engine="plain".
+    Returns (launches, {format: ...}, the CMLS16 leaf for the times)."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.stream import window as wnd
+    rng = np.random.default_rng(SEED + 21)
+    batches = [torch.from_numpy(zipf_keys(rng, ALG_KEYS).astype(np.int64))
+               .to(dev) for _ in range(ALG_UPDATES)]
+    out, keep, launches = {}, None, {}
+    for fname, counter, packed in formats:
+        spec = sk.SketchSpec.from_memory(BUDGET, depth=2, counter=counter,
+                                         packed=packed)
+        ds = wnd.decayed_init(spec, gamma=ALG_GAMMA, history=ALG_HISTORY,
+                              device=dev)
+        for i, keys in enumerate(batches):
+            ds = wnd.decayed_update(ds, keys, [SEED + 21, i],
+                                    age_step=i % 3 != 2)
+        torch.cuda.synchronize()
+        ksk.reset_kernel_launches()
+        got = wnd.decayed_query(ds, probes)
+        torch.cuda.synchronize()
+        counts = ksk.kernel_launches()
+        want = wnd.decayed_query(ds, probes, engine="plain")
+        if counts["window_query"] != 1 or sum(counts.values()) != 1:
+            fail(f"decayed_query {fname}: kernel launches {counts}, want "
+                 "one window_query")
+        if not torch.equal(got, want):
+            fail(f"decayed_query {fname}: kernel 7 differs from the plain "
+                 f"engine (max abs {float((got - want).abs().max())})")
+        if not bool(torch.isfinite(got).all()) or float(got.sum()) <= 0:
+            fail(f"decayed_query {fname}: answers not finite and positive")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        out[fname] = {"leaf": list(ds.tables.shape),
+                      "leaf_bytes": ds.tables.numel()
+                      * ds.tables.element_size(),
+                      "answer_sum": float(got.sum())}
+        if fname == "CMLS16":
+            keep = ds
+    log(f"decayed sketch: (history {ALG_HISTORY} + tail) leaves through "
+        f"{ALG_UPDATES} decayed_update of {ALG_KEYS} keys; decayed_query of "
+        f"{probes.numel()} probes, kernel 7 equal to the plain engine in "
+        f"every format: {out}")
+    return launches, out, keep
+
+
+def window_check(dev, spec, fname, probes) -> dict:
+    """(b): a window_init ring of WINDOW_BUCKETS buckets through
+    window_update / window_rotate / window_advance_to (one interval,
+    several, a jump past the whole ring); window_query full, n_buckets=3,
+    gamma=0.8 and mode="max" with kernel 7 equal to the plain engine."""
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.stream import WindowSpec
+    from repro_torch.stream import window as wnd
+    rng = np.random.default_rng(SEED + 22)
+    wspec = WindowSpec(sketch=spec, buckets=WINDOW_BUCKETS, interval=60.0)
+    win = wnd.window_init(wspec, device=dev)
+    steps = [30.0, 50.0, None, 130.0, 400.0, None, 420.0,
+             420.0 + 60.0 * (WINDOW_BUCKETS + 2), 500.0 + 60.0 * 11]
+    for i, ts in enumerate(steps):
+        win = (wnd.window_rotate(win) if ts is None
+               else wnd.window_advance_to(win, ts))
+        keys = torch.from_numpy(zipf_keys(rng, ALG_KEYS).astype(np.int64))
+        win = wnd.window_update(win, keys.to(dev), [SEED + 22, i])
+    full = int((win.tables.view(torch.uint8) != 0).flatten(1).any(1).sum())
+    if win.epoch != 19 or full < 2:
+        fail(f"window ring {fname}: epoch {win.epoch}, {full} live buckets")
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    reads = [("full", {}), ("n_buckets=3", {"n_buckets": 3}),
+             ("gamma=0.8", {"gamma": 0.8}), ("max", {"mode": "max"})]
+    got = {what: wnd.window_query(win, probes, **kw) for what, kw in reads}
+    torch.cuda.synchronize()
+    counts = ksk.kernel_launches()
+    if counts["window_query"] != len(reads):
+        fail(f"window ring {fname}: kernel launches {counts}")
+    for what, kw in reads:
+        want = wnd.window_query(win, probes, engine="plain", **kw)
+        if not torch.equal(got[what], want):
+            fail(f"window_query {what} {fname}: kernel 7 differs from the "
+                 "plain engine")
+    log(f"window ring {fname}: window_init + {len(steps)} updates through "
+        f"rotations and watermark advances (epoch {win.epoch}, cursor "
+        f"{win.cursor}); window_query full / n_buckets=3 / gamma=0.8 / max "
+        "with kernel 7 equal to the plain engine")
+    return counts
+
+
+def algebra_on_card(dev, spec, fname) -> dict:
+    """(c): merge, decay, update_exact and the damped update_batched on the
+    card, each held against the same port function on the CPU from the
+    same inputs.  Returns the differing cells and the rates."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.stream import window as wnd
+    rng = np.random.default_rng(SEED + 23)
+    keys_a = torch.from_numpy(zipf_keys(rng, 4 * ALG_KEYS).astype(np.int64))
+    keys_b = torch.from_numpy(zipf_keys(rng, 4 * ALG_KEYS).astype(np.int64))
+    a = sk.update_batched(sk.init(spec, device=dev), keys_a.to(dev), [1, 1])
+    b = sk.update_batched(sk.init(spec, device=dev), keys_b.to(dev), [1, 2])
+    a_cpu = sk.Sketch(table=a.table.cpu(), spec=spec)
+    b_cpu = sk.Sketch(table=b.table.cpu(), spec=spec)
+    res = {}
+    m = sk.merge(a, b, mode="max")
+    res["merge_max"] = cells_apart(m.table, sk.merge(a_cpu, b_cpu).table,
+                                   spec, f"merge max {fname}")
+    if res["merge_max"]:
+        fail(f"merge max {fname}: card and CPU differ")
+    key = [1, 3]
+    m = sk.merge(a, b, mode="estimate_sum", rng=key)
+    m_cpu = sk.merge(a_cpu, b_cpu, mode="estimate_sum", rng=key)
+    res["merge_estimate_sum"] = cells_apart(
+        m.table, m_cpu.table, spec, f"merge estimate_sum {fname}")
+    ratio = unbiased(m.table, estimate_sum(a.table, spec)
+                     + estimate_sum(b.table, spec), spec,
+                     f"merge estimate_sum {fname}")
+    d = wnd.decay(a, ALG_GAMMA, [1, 4])
+    res["decay"] = cells_apart(d.table, wnd.decay(a_cpu, ALG_GAMMA,
+                                                  [1, 4]).table,
+                               spec, f"decay {fname}")
+    decay_ratio = unbiased(d.table, ALG_GAMMA * estimate_sum(a.table, spec),
+                           spec, f"decay {fname}")
+    res["merge_mean_ratio"], res["decay_mean_ratio"] = ratio, decay_ratio
+    ev = torch.from_numpy(zipf_keys(rng, EXACT_EVENTS).astype(np.int64))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = sk.update_exact(a, ev.to(dev), [1, 5])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_cpu = sk.update_exact(a_cpu, ev, [1, 5])
+    dt_cpu = time.perf_counter() - t0
+    res["update_exact"] = cells_apart(e.table, e_cpu.table, spec,
+                                      f"update_exact {fname}")
+    moved = int((sk.logical_table(e.table, spec)
+                 != sk.logical_table(a.table, spec)).sum())
+    if moved == 0:
+        fail(f"update_exact {fname}: no cell moved")
+    res["update_exact_events_per_s"] = EXACT_EVENTS / dt
+    res["update_exact_events_per_s_cpu"] = EXACT_EVENTS / dt_cpu
+    dk = torch.from_numpy(zipf_keys(rng, ALG_KEYS).astype(np.int64))
+    dmp = sk.update_batched(a, dk.to(dev), [1, 6], damp_alpha=DAMP_ALPHA)
+    und = sk.update_batched(a, dk.to(dev), [1, 6])
+    res["damped"] = cells_apart(
+        dmp.table, sk.update_batched(a_cpu, dk, [1, 6],
+                                     damp_alpha=DAMP_ALPHA).table,
+        spec, f"damped update_batched {fname}")
+    if torch.equal(dmp.table.view(torch.uint8), und.table.view(torch.uint8)):
+        fail(f"damped update_batched {fname}: equal to the undamped update")
+    log(f"algebra on the card, {fname}, against the CPU: cells apart "
+        f"{ {k: v for k, v in res.items() if isinstance(v, int)} }; "
+        f"estimate-space means merge {ratio:.6f}, decay {decay_ratio:.6f}; "
+        f"update_exact {res['update_exact_events_per_s']:.0f} events/s on "
+        f"the card, {res['update_exact_events_per_s_cpu']:.0f} on the CPU")
+    return res
+
+
+def probe_check(dev, spec, registry, tracer) -> tuple:
+    """(d): the 64-tenant tracked service of phase 3 with an
+    AccuracyProbe through MICRO full-size enqueue_many and a flush, its
+    appends under set_sync_debug_mode("error"), against the same stream
+    on the plain engine (which carries the phase's registry and tracer):
+    equal shadow counts and ARE deciles.  Then the host time of an epoch
+    with the probe over without, in interleaved pairs, and the seconds
+    `record` takes.  Returns (launches, report)."""
+    from repro_torch import obs
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve_counts as sc
+    rng = np.random.default_rng(SEED + 24)
+    many, _ = sc.make_epoch(rng, TENANTS, MICRO, BATCH)
+
+    def build(engine, probe, **kw):
+        return sc.build_service(spec, TENANTS, RING, SEED, TRACK_TOP,
+                                device=dev, engine=engine, probe=probe, **kw)
+
+    probe = obs.AccuracyProbe(rate=PROBE_RATE, capacity=PROBE_CAPACITY)
+    svc = build("auto", probe)
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for events in many:
+            svc.enqueue_many(events)
+    except RuntimeError as err:
+        fail(f"enqueue_many with the probe synchronized: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    svc.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ares = probe.record(svc)
+    record_s = time.perf_counter() - t0
+    launches = ksk.kernel_launches()
+    missing = [k for k in ("fused_query", "fused_update_score",
+                           "queue_append", "queue_append_dense")
+               if launches[k] == 0]
+    if missing:
+        fail(f"probe path: kernels not launched: {missing}")
+    pprobe = obs.AccuracyProbe(rate=PROBE_RATE, capacity=PROBE_CAPACITY)
+    plain = build("plain", pprobe, metrics=registry, tracer=tracer)
+    for events in many:
+        plain.enqueue_many(events)
+    plain.flush()
+    pares = pprobe.record(plain)
+    if probe.counts != pprobe.counts or probe.dropped != pprobe.dropped:
+        fail("probe: shadow counts differ between kernels and plain engine")
+    if ares != pares:
+        fail("probe: ARE deciles differ between kernels and plain engine")
+    if len(ares) < TENANTS:
+        fail(f"probe: {len(ares)} tenants scored")
+    del plain
+    shadowed = sum(len(c) for c in probe.counts.values())
+
+    # host time of an epoch with the probe over one without, in pairs
+    bare = build("auto", None)
+    ratios, times = [], {"probe": [], "bare": []}
+    for i in range(PROBE_PAIRS):
+        ep, _ = sc.make_epoch(rng, TENANTS, MICRO, BATCH)
+        pair = [("probe", svc), ("bare", bare)]
+        if i % 2:
+            pair.reverse()
+        for what, s in pair:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for events in ep:
+                s.enqueue_many(events)
+            s.flush()
+            torch.cuda.synchronize()
+            times[what].append(time.perf_counter() - t0)
+        ratios.append(times["probe"][-1] / times["bare"][-1])
+    res = {"shadowed_keys": shadowed, "dropped": probe.dropped,
+           "record_s": record_s, "tenants_scored": len(ares),
+           "epoch_s_probe": summary(times["probe"]),
+           "epoch_s_bare": summary(times["bare"]),
+           "epoch_ratio_median": float(np.median(ratios)),
+           "epoch_ratios": ratios,
+           "are_tenant_00": ares["tenant_00"]}
+    log(f"probe: {TENANTS}-tenant tracked service, AccuracyProbe(rate="
+        f"{PROBE_RATE}, capacity={PROBE_CAPACITY}): {shadowed} shadowed "
+        f"keys, shadow counts and ARE deciles equal the plain engine's, "
+        f"enqueue_many under set_sync_debug_mode('error'); record "
+        f"{record_s:.4f} s for {len(ares)} tenants; epoch host time with / "
+        f"without the probe, median of {PROBE_PAIRS} interleaved pairs "
+        f"{res['epoch_ratio_median']:.4f}; tenant_00 ARE by decile "
+        f"{[round(v, 4) for v in ares['tenant_00']]}; launches {launches}")
+    del bare, svc
+    return launches, res
+
+
+def export_check(registry, tracer, scored: int) -> dict:
+    """(e): the phase's registry and tracer through to_prometheus and
+    to_chrome_trace into a temporary directory, parsed back."""
+    import tempfile
+    from repro_torch import obs
+    with tempfile.TemporaryDirectory() as root:
+        prom = pathlib.Path(root) / "phase11.prom"
+        trace = pathlib.Path(root) / "phase11_trace.json"
+        obs.write_prometheus(str(prom), registry)
+        obs.write_chrome_trace(str(trace), tracer)
+        lines = prom.read_text().splitlines()
+        events = json.loads(trace.read_text())["traceEvents"]
+    series = {}
+    for line in lines:
+        if line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        series[key] = float(value)
+    deciles = [k for k in series if k.startswith("accuracy_are_decile{")]
+    buckets = [k for k in series if k.startswith("span_duration_us_bucket{")]
+    if len(deciles) != 10 * scored or not buckets:
+        fail(f"export: {len(deciles)} accuracy_are_decile gauges, "
+             f"{len(buckets)} span_duration_us buckets")
+    names = {ev["name"] for ev in tracer.events}
+    back = [ev["name"] for ev in events]
+    if sorted(back) != sorted(ev["name"] for ev in tracer.events):
+        fail("export: the chrome trace lost spans")
+    for key, value in registry.snapshot()["gauges"].items():
+        if key.startswith("accuracy_are_decile") and \
+                series[key] != value["value"]:
+            fail(f"export: {key} parsed back as {series[key]}")
+    res = {"series": len(series), "decile_gauges": len(deciles),
+           "span_buckets": len(buckets), "spans": len(back),
+           "span_names": sorted(names)}
+    log(f"export: Prometheus text ({len(series)} series, {len(deciles)} "
+        f"accuracy_are_decile gauges, {len(buckets)} span_duration_us "
+        f"buckets) and a chrome trace of {len(back)} spans "
+        f"({sorted(names)}) written and parsed back")
+    return res
+
+
+def algebra_phase(dev, formats) -> tuple:
+    """Phase 11: the sketch and window algebra, the probe and the export
+    at full width, (a)-(e).  Returns (kernel launches summed over its
+    paths, the numbers it reports, the drives phase 12 times alone)."""
+    from repro_torch import obs
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import CMLS16, CMS32, from_numpy
+    from repro_torch.stream import window as wnd
+    t0 = time.perf_counter()
+    res = {}
+    probes = from_numpy(np.arange(PROBES, dtype=np.uint32) * 7, dev)
+    l_a, res["decayed"], ds = decayed_check(dev, formats, probes)
+    launches = dict(l_a)
+    specs = {"CMLS16": sk.SketchSpec.from_memory(BUDGET, depth=2,
+                                                 counter=CMLS16),
+             "CMS32": sk.SketchSpec.from_memory(BUDGET, depth=2,
+                                                counter=CMS32)}
+    res["algebra"] = {}
+    for fname, spec in specs.items():
+        for k, v in window_check(dev, spec, fname, probes).items():
+            launches[k] += v
+        res["algebra"][fname] = algebra_on_card(dev, spec, fname)
+    registry = obs.MetricsRegistry()
+    tracer = obs.Tracer(enabled=True, metrics=registry)
+    l_d, res["probe"] = probe_check(dev, specs["CMLS16"], registry, tracer)
+    for k, v in l_d.items():
+        launches[k] += v
+    res["export"] = export_check(registry, tracer,
+                                 res["probe"]["tenants_scored"])
+
+    # times: decayed_rotate and decayed_query on the CMLS16 leaf
+    res["decayed_rotate_ms"] = cuda_ms(
+        lambda: wnd.decayed_rotate(ds, [SEED, 99]), 10)
+    res["decayed_query_ms"] = cuda_ms(lambda: wnd.decayed_query(ds, probes),
+                                      50)
+    res["decayed_query_plain_ms"] = cuda_ms(
+        lambda: wnd.decayed_query(ds, probes, engine="plain"), 10)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"algebra phase: {res['seconds']:.1f} s; decayed_rotate "
+        f"{res['decayed_rotate_ms']:.4f} ms, decayed_query "
+        f"{res['decayed_query_ms']:.4f} ms (plain "
+        f"{res['decayed_query_plain_ms']:.4f} ms) on the "
+        f"{tuple(ds.tables.shape)} CMLS16 leaf; launches {launches}")
+    drives = {"decayed_query": lambda: wnd.decayed_query(ds, probes)}
+    return launches, res, drives
 
 
 def main(device: str = "cuda") -> None:
@@ -2868,7 +3287,10 @@ def main(device: str = "cuda") -> None:
     tier_launches, tier_report, tier_drives, tiered_svcs = tiering_phase(
         dev, spec, stream)
 
-    # ---- 11. profiles -------------------------------------------------------
+    # ---- 11. the sketch and window algebra, the probe, the export ---------
+    alg_launches, alg_report, alg_drives = algebra_phase(dev, formats)
+
+    # ---- 12. profiles -------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
     # slower (the append wrappers' host time below, before and after), so
     # every event and host-clock time above is taken before the first one.
@@ -2917,6 +3339,11 @@ def main(device: str = "cuda") -> None:
             f"{prof['runtime_calls']}, host-to-device copies "
             f"{prof['host_to_device_copies']}; tier counters "
             f"{tier_counts(tiered_svcs[0 if what != 'windowed' else 1])}")
+    alg_report["decayed_query_kernel_alone_ms"] = kernel_device_ms(
+        alg_drives["decayed_query"], 50, KERNEL_NAMES["window_query"])
+    log(f"kernel 7 alone on the decayed {ALG_HISTORY + 1}-bucket CMLS16 "
+        f"leaf, {PROBES} probes: "
+        f"{alg_report['decayed_query_kernel_alone_ms']:.5f} ms")
     append_host["after_profiler"] = append_host_us(dev, ring, append_calls)
     log("append wrapper host time by part after the profiler sessions, us "
         f"per call: {append_host['after_profiler']}")
@@ -2946,7 +3373,8 @@ def main(device: str = "cuda") -> None:
         launches = (main_launches[name] + win_launches[name]
                     + flat_launches[name] + sync_launches[name]
                     + flush_launches[name] + read_launches[name]
-                    + adm_launches[name] + tier_launches[name])
+                    + adm_launches[name] + tier_launches[name]
+                    + alg_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -2956,10 +3384,11 @@ def main(device: str = "cuda") -> None:
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
             f"flushes / sync-free reads / admission and snapshots / "
-            f"tiering {main_launches[name]} / {win_launches[name]} / "
-            f"{flat_launches[name]} / {sync_launches[name]} / "
-            f"{flush_launches[name]} / {read_launches[name]} / "
-            f"{adm_launches[name]} / {tier_launches[name]}")
+            f"tiering / algebra and probe {main_launches[name]} / "
+            f"{win_launches[name]} / {flat_launches[name]} / "
+            f"{sync_launches[name]} / {flush_launches[name]} / "
+            f"{read_launches[name]} / {adm_launches[name]} / "
+            f"{tier_launches[name]} / {alg_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2975,7 +3404,8 @@ def main(device: str = "cuda") -> None:
         "query_all_ms": qlat, "query_all_ms_plain": pqlat,
         "append_host_us": append_host},
         "profile_epoch": profile, "window_path": e2e2,
-        "admission": adm_report, "tiering": tier_report}), flush=True)
+        "admission": adm_report, "tiering": tier_report,
+        "algebra": alg_report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -213,6 +213,34 @@ class CounterSpec:
             v, 1.0)
         return torch.clamp_min(c - too_high.to(torch.float32), 0.0)
 
+    def reencode_stochastic(self, value: torch.Tensor,
+                            rng=None) -> torch.Tensor:
+        """Estimate-space value -> counter state, unbiased when rng given.
+
+        Floor state plus a Bernoulli bump with probability equal to the
+        residual in units of the local point mass, so
+        E[decode(reencode_stochastic(v))] == v (clipped at max_state).
+        `rng` is a raw threefry key: one uniform a cell of `value`'s
+        shape (`prng.uniform`, JAX's draw bit for bit).  With rng None the
+        floor state is returned.  Returns float32 states (float32 rounds
+        CMS32 states past 2^24, as the reference does).
+        """
+        from repro_torch.core import prng  # prng imports this module
+
+        v = value.to(torch.float32)
+        s = self.encode_floor(v)
+        if rng is not None:
+            frac = (v - self.decode(s)) / self.point_mass(s)
+            u = prng.uniform(rng, tuple(s.shape), device=s.device)
+            s = s + (u < frac).to(torch.float32)
+        return torch.clamp(s, 0.0, float(self.max_state))
+
+    def cells(self, states: torch.Tensor) -> torch.Tensor:
+        """float32 states -> int64 cell values, saturating at max_state as
+        the reference's cast to the cell dtype does (CMS32's clip bound
+        rounds to 2^32 in float32)."""
+        return torch.clamp_max(states.to(torch.int64), self.max_state)
+
     def nfold(self, state: torch.Tensor, n: torch.Tensor,
               uniform: torch.Tensor) -> torch.Tensor:
         """Add n >= 0 events to counter `state` in one step.

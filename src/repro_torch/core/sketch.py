@@ -2,11 +2,19 @@
 
 Counterpart of `repro/core/sketch.py`: the sketch geometry (`SketchSpec`,
 with the packed uint32-lane storage), a `Sketch` holding one (d, w) table,
-the paper's query (min over rows + Morris decode), and the sort +
-segment-sum dedup that turns an event batch into (key, multiplicity)
-pairs for the batched conservative update, and that update itself in its
-one-shot form (`update_batched`: every key reads the minima from before
-the batch, writes resolve by max).
+the paper's query (min over rows + Morris decode), and the two update
+paths sharing that table:
+
+  * `update_exact` -- one event at a time, the paper's Algorithm 1 (each
+    event sees every earlier update): a plain loop of torch ops, the
+    oracle for the batched path;
+  * `update_batched` -- sort + segment-sum dedup into (key, multiplicity)
+    pairs, n-fold Morris step, conservative write by scatter-max (every
+    key reads the minima from before the batch), optionally damped by
+    the rows' smallest/second-smallest ratio (`damp_alpha`).
+
+`merge` combines two sketches of one spec cell-wise ("max", or
+"estimate_sum" with a stochastic re-encode).
 """
 from __future__ import annotations
 
@@ -17,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.counters import (CounterSpec, from_i64, pack_table,
-                                       to_i64, unpack_table, zeros)
+from repro_torch.core.counters import (CounterSpec, f32_const, from_i64,
+                                       pack_table, to_i64, unpack_table,
+                                       zeros)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.hashing import as_i64, make_row_seeds, row_hashes
 
@@ -231,20 +240,109 @@ def update_batched(sketch: Sketch, keys: torch.Tensor, rng,
     uniforms (`prng.uniform(rng, (N,))`) drive the stochastic rounding.
 
     weights: optional per-event weights (default 1); equal keys sum
-    before the n-fold step.  Returns a new Sketch.  The reference's
-    damped update (damp_alpha > 0) is not ported yet.
+    before the n-fold step.  Returns a new Sketch.
+
+    damp_alpha > 0 (depth >= 2; depth 1 is not damped, as in the
+    reference) scales each key's added mass by
+    ((V(min) + 1) / (V(2nd min) + 1)) ** damp_alpha over its d cells:
+    the paper's §4 "probabilistic update rule" prototype, biased by
+    construction.
     """
     spec = sketch.spec
-    if damp_alpha > 0.0 and spec.depth >= 2:
-        raise NotImplementedError("not in this slice of the port: the "
-                                  "damped update (damp_alpha > 0)")
     dev = sketch.table.device
     keys = keys.reshape(-1)
     if weights is None:
         weights = torch.ones(keys.shape, dtype=torch.float32, device=dev)
     sk_keys, mult = dedup_weighted(keys.to(dev), weights.to(dev))
-    u = prng.uniform(rng, (keys.shape[0],), device=dev)
     cells = logical_table(sketch.table, spec)[None]
+    if damp_alpha > 0.0 and spec.depth >= 2:
+        mult = mult * _damping(cells[0], sk_keys, sketch.row_seeds,
+                               spec.counter, damp_alpha)
+    u = prng.uniform(rng, (keys.shape[0],), device=dev)
     conservative_update_(cells, sk_keys[None], mult[None], u[None],
                          sketch.row_seeds, spec.counter)
     return Sketch(table=storage_table(cells[0], spec), spec=spec)
+
+
+def _damping(cells: torch.Tensor, keys: torch.Tensor, row_seeds,
+             counter: CounterSpec, alpha: float) -> torch.Tensor:
+    """((decode(s0) + 1) / (decode(s1) + 1)) ** alpha per key, s0 <= s1
+    the two smallest of its d cells (a float32 pow, as the reference's
+    `** alpha` with a float exponent)."""
+    cols = row_hashes(keys, row_seeds, cells.shape[-1])          # (d, N)
+    rows = torch.arange(cells.shape[0], device=cells.device)[:, None]
+    srt = torch.sort(cells[rows, cols], dim=0).values
+    one = f32_const(1.0, cells.device)
+    ratio = (counter.decode(srt[0]) + one) / (counter.decode(srt[1]) + one)
+    return torch.pow(ratio, f32_const(alpha, cells.device))
+
+
+def update_exact(sketch: Sketch, keys, rng) -> Sketch:
+    """Process events one at a time with conservative update (paper Alg. 1).
+
+    keys (N,) event tensor; `rng` a raw threefry key whose uniforms
+    (`prng.uniform(rng, (N,))`) drive IncreaseDecision.  A cell moves
+    only if it sits at the key's minimum, the decision fired
+    (u < increase_prob(min)) and the minimum is not saturated.  A plain
+    loop of torch ops on the sketch's device, about 15 launches an event
+    on CUDA (no kernel: the reference has none either).  Returns a new
+    Sketch.
+    """
+    spec = sketch.spec
+    counter = spec.counter
+    dev = sketch.table.device
+    keys = keys.reshape(-1).to(dev)
+    n = keys.shape[0]
+    cols = row_hashes(keys, sketch.row_seeds, spec.width)       # (d, N)
+    u = prng.uniform(rng, (n,), device=dev)
+    rows = torch.arange(spec.depth, device=dev)
+    table = logical_table(sketch.table, spec).clone()
+    for i in range(n):
+        c = cols[:, i]
+        cur = table[rows, c]
+        cmin = cur.min()
+        bump = ((u[i] < counter.increase_prob(cmin)) & (cur == cmin)
+                & (cmin != counter.max_state))
+        table[rows, c] = cur + bump.to(torch.int64)
+    return Sketch(table=storage_table(table, spec), spec=spec)
+
+
+def update(sketch: Sketch, keys, rng, mode: str = "batched") -> Sketch:
+    """`update_exact` (mode="exact") or `update_batched` ("batched")."""
+    if mode == "exact":
+        return update_exact(sketch, keys, rng)
+    if mode == "batched":
+        return update_batched(sketch, keys, rng)
+    raise ValueError(f"unknown update mode {mode!r}")
+
+
+# --------------------------------------------------------------------------
+# MERGE -- mergeable-summary semantics for distribution
+# --------------------------------------------------------------------------
+
+def merge(a: Sketch, b: Sketch, mode: str = "max", rng=None) -> Sketch:
+    """Combine two sketches built with identical specs.
+
+      max          -- elementwise max of states: the mergeable lower
+                      bound for conservative-update sketches.
+      estimate_sum -- decode both cells, add, re-encode
+                      (`CounterSpec.reencode_stochastic`: stochastic
+                      round with a raw key `rng`, floor without); the
+                      right choice for shards that saw disjoint events.
+
+    Both work on the logical tables and repack: a max over packed uint32
+    lanes is not the per-cell max.
+    """
+    if a.spec != b.spec:
+        raise ValueError("cannot merge sketches with different specs")
+    c = a.spec.counter
+    ta = logical_table(a.table, a.spec)
+    tb = logical_table(b.table, b.spec)
+    if mode == "max":
+        table = torch.maximum(ta, tb)
+    elif mode == "estimate_sum":
+        v = c.decode(ta) + c.decode(tb)
+        table = c.cells(c.reencode_stochastic(v, rng))
+    else:
+        raise ValueError(f"unknown merge mode {mode!r}")
+    return Sketch(table=storage_table(table, a.spec), spec=a.spec)

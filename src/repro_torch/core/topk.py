@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.counters import from_i64, signed_view
+from repro_torch.core.device import resolve_device
 from repro_torch.core.hashing import as_i64
 
 
@@ -33,8 +34,11 @@ class TopK:
     filled: torch.Tensor     # (t, k) bool occupancy mask
 
 
-def init_stacked(t: int, k: int, device="cpu") -> TopK:
-    """Cold (t, k) heap stack -- one top-k buffer per tenant row."""
+def init_stacked(t: int, k: int, device=None) -> TopK:
+    """Cold (t, k) heap stack -- one top-k buffer per tenant row, on
+    `device`: CUDA unless the caller passes "cpu"
+    (`core/device.resolve_device`)."""
+    device = resolve_device(device)
     return TopK(keys=torch.zeros((t, k), dtype=torch.int32,
                                  device=device).view(torch.uint32),
                 estimates=torch.full((t, k), -torch.inf, dtype=torch.float32,

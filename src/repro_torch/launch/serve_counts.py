@@ -33,8 +33,22 @@ class.  `--tier-hot N` turns on tiered hot/cold storage
 (`TierSpec(max_hot_tenants=N)`, LRU victims): each plane keeps at most N
 tenants on the device and the rest in a host cold store, and the run
 prints each plane's tier occupancy and its promotion, demotion and spill
-counters.  The run prints span and dispatch summaries off the metrics
-registry.
+counters.
+
+The run is observed through `repro_torch.obs`: an `AccuracyProbe`
+(`--probe-rate`, default 0.05) shadows a hash-sampled slice of every
+enqueued key space with exact host counts, and after the run the
+launcher prints the ARE by frequency decile of the first three shadowed
+tenants (decile 0 the coldest keys: the paper's evaluation as a live
+metric, also landed in the registry), the span summary, each span's
+p50/p99 off its `span_duration_us` histogram, and the dispatch tallies.
+Scrape the run with
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_counts \
+        --metrics-out serve.prom --trace-out serve_trace.json
+
+`serve.prom` is Prometheus text exposition; `serve_trace.json` loads in
+chrome://tracing or Perfetto.
 
 Runs on CUDA by default; `--device cpu` runs the plain versions.
 """
@@ -52,8 +66,6 @@ from repro_torch.core import CMLS16, CMS32, SketchSpec
 from repro_torch.core.admission import AdmissionSpec
 from repro_torch.stream import CountService, TierSpec, WindowPlane, WindowSpec
 
-LATER_SLICES = "not yet in the port (a later slice): the accuracy probe"
-
 # the reference launcher's tracker-fed admission tenant
 EMB_IDS = AdmissionSpec(threshold=64.0, n_fallback=1024, table_rows=1 << 16)
 
@@ -70,15 +82,16 @@ def build_service(spec: SketchSpec, tenants: int, queue_capacity: int,
                   seed: int, track_top, device=None,
                   engine: str = "auto", metrics=None, tracer=None,
                   trending: int = 0, admission=None,
-                  tier=None) -> CountService:
+                  tier=None, probe=None) -> CountService:
     """The launcher's service: `tenants` tenants on `spec`, the CMS32
     metrics plane exactly as the reference launcher builds it, then
     `trending` windowed tenants (WindowSpec(spec, 8 buckets, 60 s)).
     `admission` (an AdmissionSpec) arms that policy on every tenant but
-    the metrics plane's; `tier` (a TierSpec) tiers every plane."""
+    the metrics plane's; `tier` (a TierSpec) tiers every plane; `probe`
+    (an AccuracyProbe) shadows every tenant's enqueued keys."""
     svc = CountService(spec, queue_capacity=queue_capacity, seed=seed,
                        track_top=track_top, metrics=metrics, tracer=tracer,
-                       device=device, engine=engine, tier=tier)
+                       probe=probe, device=device, engine=engine, tier=tier)
     for t in range(tenants):
         svc.add_tenant(f"tenant_{t:02d}", admission=admission)
     metrics_spec = SketchSpec(width=1024, depth=2, counter=CMS32)
@@ -168,17 +181,25 @@ def main(argv=None) -> None:
                     help="turn on tiered hot/cold storage: keep at most "
                          "this many tenants per plane device-resident "
                          "(TierSpec(max_hot_tenants=...), LRU victims)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write Prometheus text exposition here on exit")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a chrome://tracing JSON here on exit")
+    ap.add_argument("--probe-rate", type=float, default=0.05,
+                    help="hash-sample rate of the exact accuracy shadow")
     args = ap.parse_args(argv)
 
     spec = SketchSpec(width=args.width, depth=args.depth, counter=CMLS16)
     registry = obs.MetricsRegistry()
     tracer = obs.Tracer(enabled=True, metrics=registry)
     track_top = args.track_top or None
+    slo_probe = obs.AccuracyProbe(rate=args.probe_rate)
     tier = (None if args.tier_hot is None
             else TierSpec(max_hot_tenants=args.tier_hot))
     svc = build_service(spec, args.tenants, args.queue_cap, args.seed,
                         track_top, device=args.device, metrics=registry,
-                        tracer=tracer, trending=args.trending, tier=tier)
+                        tracer=tracer, trending=args.trending, tier=tier,
+                        probe=slo_probe)
     if track_top:
         svc.add_tenant("emb_ids", admission=EMB_IDS)
     rng = np.random.default_rng(args.seed)
@@ -288,14 +309,40 @@ def main(argv=None) -> None:
               f"{same}, tenants={len(svc2.tenants)}, planes="
               f"{len(svc2.planes)}, stats={svc2.stats}")
 
+    # accuracy SLO probe: the exact shadow slice scored by frequency
+    # decile (decile 0 = coldest keys); record() also lands the deciles
+    # in the registry
+    ares = slo_probe.record(svc)
+    for tenant in sorted(ares)[:3]:
+        print(f"[serve_counts] {tenant} ARE by decile (cold->hot, "
+              f"{len(slo_probe.counts[tenant])} shadowed keys): "
+              f"{[round(v, 3) for v in ares[tenant]]}")
+
     summ = tracer.summary()
     print("[serve_counts] spans: " + ", ".join(
         f"{name} x{s['count']} {s['total_us'] / 1e3:.1f}ms"
         for name, s in sorted(summ.items())))
+    # per-op latency off the span histograms (log2-bucket upper bounds,
+    # what a scraper derives from --metrics-out's cumulative buckets)
+    pcts = []
+    for name in sorted(summ):
+        h = registry.histogram("span_duration_us", lo=0, hi=24, span=name)
+        pcts.append(f"{name} p50<={h.quantile(0.5) / 1e3:.3g}ms "
+                    f"p99<={h.quantile(0.99) / 1e3:.3g}ms")
+    print(f"[serve_counts] span latency (p50/p99 bucket bounds): "
+          f"{', '.join(pcts)}")
     disp = {k: v for k, v in svc.metrics.snapshot()["counters"].items()
             if k.startswith("dispatch")}
     print(f"[serve_counts] dispatch tallies: {disp}")
-    print(f"[serve_counts] {LATER_SLICES}")
+
+    if args.metrics_out:
+        obs.write_prometheus(args.metrics_out, svc.metrics)
+        print(f"[serve_counts] wrote Prometheus exposition -> "
+              f"{args.metrics_out}")
+    if args.trace_out:
+        obs.write_chrome_trace(args.trace_out, tracer)
+        print(f"[serve_counts] wrote chrome://tracing JSON -> "
+              f"{args.trace_out}")
 
 
 if __name__ == "__main__":

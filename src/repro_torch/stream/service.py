@@ -70,8 +70,10 @@ nothing.  A plane's cold-tier uploads and read-backs go through its own
 pinned buffers (`_ColdLink`).
 
 The port updates tables, leaves and rings in place (the reference
-donates them); the results are the same.  The accuracy probe is a later
-slice and raises `NotImplementedError`.  Entry points run on CUDA unless
+donates them); the results are the same.  An `AccuracyProbe`
+(`probe=`) shadows the keys `enqueue` and `enqueue_many` take, on the
+host, before they are appended: a probe adds no launch and no
+synchronize to the append.  Entry points run on CUDA unless
 `device="cpu"`; without a GPU a CUDA service raises instead of carrying
 on on the CPU.
 """
@@ -103,15 +105,6 @@ from repro_torch.train import checkpoint
 _as_keys = sk.as_uint32_keys
 
 VERSION = 8  # the checkpoint manifest's schema, as the reference writes it
-
-LATER = {
-    "probe": "the accuracy probe (obs/probes.py) is a later slice",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not in this slice of the port: {LATER[what]}")
-
 
 def _spec_meta(spec: SketchSpec) -> dict:
     c = spec.counter
@@ -1243,14 +1236,13 @@ class CountService:
                  seed: int = 0, track_top: Optional[int] = None,
                  metrics: Optional[obs.MetricsRegistry] = None,
                  tracer: Optional[obs.Tracer] = None,
-                 probe=None, tier=None, device=None, engine: str = "auto"):
+                 probe: Optional[obs.AccuracyProbe] = None, tier=None,
+                 device=None, engine: str = "auto"):
         self.device = resolve_device(device)
         if queue_capacity < 1:
             raise ValueError("queue_capacity must be positive")
         if track_top is not None and track_top < 1:
             raise ValueError("track_top must be positive")
-        if probe is not None:
-            raise _later("probe")
         if tier is not None and not isinstance(tier, TierSpec):
             raise TypeError(f"tier must be a TierSpec, got {type(tier)}")
         ops._check_engine(engine)
@@ -1260,6 +1252,8 @@ class CountService:
         self.seed = int(seed)
         self.track_top = None if track_top is None else int(track_top)
         self.tier = tier
+        # the accuracy probe (opt-in) shadows enqueued keys on the host
+        self.probe = probe
         self._planes: dict[SketchSpec, TenantPlane] = {}
         self._wplanes: dict[w.WindowSpec, WindowPlane] = {}
         self._where: dict[str, tuple[object, int]] = {}
@@ -1405,6 +1399,8 @@ class CountService:
             if ts is not None:
                 self._window_plane(name, plane).advance(
                     row, ts, lambda: self._flush_plane(plane))
+            if self.probe is not None:
+                self.probe.observe(name, keys)
             self._m_events.inc(int(keys.size))
             cap = plane.queue_capacity
             while keys.size:
@@ -1451,6 +1447,8 @@ class CountService:
                                                        (plane, [], []))
                 rows.append(row)
                 batches.append(keys)
+                if self.probe is not None:
+                    self.probe.observe(name, keys)
                 self._m_events.inc(int(keys.size))
             for plane, rows, batches in by_plane.values():
                 plane.queue_append_rows(rows, batches)

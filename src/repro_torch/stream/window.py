@@ -1,26 +1,39 @@
-"""Time-scoped sketches: the sliding-window bucket ring (PyTorch).
+"""Time-scoped sketches: sliding-window bucket ring + exponential decay
+(PyTorch).
 
-Counterpart of `repro/stream/window.py` for what the windowed counting
-service needs.  A `WindowedSketch` is a ring of B bucket tables of one
-`SketchSpec`: the active bucket (the cursor) absorbs updates, and with
-`WindowSpec.interval` set, event timestamps drive the ring forward
-(watermarks), zeroing the buckets rotation reuses, so bucket b holds
-exactly the events of one interval.  A window query over the last k
-buckets combines the per-bucket estimates in ONE kernel launch
-(`kernels.ops.window_query_tables`):
+Counterpart of `repro/stream/window.py`.  Two constructions, both on the
+paper's counters unchanged:
 
-  * mode="sum" (default): each bucket's estimate (min over rows, decode)
-    weighted and summed in bucket order -- the union-count estimator;
-  * mode="max": the largest weighted bucket estimate;
-  * gamma: lazy decay -- bucket b's estimate is weighted by gamma^age at
-    query time, never in the stored counters.
+  * `WindowedSketch` -- a ring of B bucket tables of one `SketchSpec`.
+    The active bucket (the cursor) absorbs updates (`window_update`); the
+    ring advances on caller cadence (`window_rotate`) or, with
+    `WindowSpec.interval` set, from event timestamps (`window_advance_to`,
+    watermarks), zeroing the buckets rotation reuses, so bucket b holds
+    exactly the events of one interval.  A window query over the last k
+    buckets combines the per-bucket estimates in ONE kernel launch
+    (`kernels.ops.window_query_tables`):
+      - mode="sum" (default): each bucket's estimate (min over rows,
+        decode) weighted and summed in bucket order -- the union-count
+        estimator;
+      - mode="max": the largest weighted bucket estimate;
+      - gamma: lazy decay -- bucket b's estimate is weighted by
+        gamma^age at query time, never in the stored counters.
 
-In the port a `WindowedSketch` is a view: `CountService`'s window planes
-keep every tenant's ring in one (T, B, d, w) leaf and hand out views of
-it.  A tiered plane's cold tenants keep their rings in host memory and
-rotate them with `cold_advance`.  `window_init` / `window_update` /
-`window_rotate` / `window_advance_to`, `decay` and `DecayedSketch` are
-later slices.
+  * `DecayedSketch` -- recency-weighted counts on ONE (B+1, d, w) leaf:
+    the ring's buckets at [:B] hold the last B rotations' events
+    undecayed, the tail at [B] all older mass.  Updates are plain
+    conservative updates into the age-0 bucket; `decayed_rotate` folds
+    only the expiring bucket into the tail (decode, add, stochastic
+    re-encode: unbiased); `decayed_query` weights bucket b by gamma^age
+    and the tail by gamma^B in one launch of the same kernel.  `decay`
+    is the eager form: every cell's estimate times gamma, re-encoded.
+
+`window_init`, `window_update`, `window_rotate`, `window_advance_to`,
+`decay` and the decayed functions return new objects, as the reference
+does.  `CountService`'s window planes keep every tenant's ring in one
+(T, B, d, w) leaf and hand out `WindowedSketch` views of it; a tiered
+plane's cold tenants keep their rings in host memory and rotate them
+with `cold_advance`.
 """
 from __future__ import annotations
 
@@ -30,8 +43,11 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import prng
+from repro_torch.core import sketch as sk
 from repro_torch.core import staging
-from repro_torch.core.counters import f32, signed_view
+from repro_torch.core.counters import f32, f32_const, signed_view, zeros
+from repro_torch.core.device import resolve_device
 from repro_torch.core.sketch import Sketch, SketchSpec
 from repro_torch.kernels import ops
 
@@ -74,6 +90,46 @@ class WindowedSketch:
         return Sketch(table=self.tables[b], spec=self.spec.sketch)
 
 
+def window_init(spec: WindowSpec, epoch: int | None = None,
+                device=None) -> WindowedSketch:
+    """A fresh ring on `device` (CUDA unless the caller passes "cpu",
+    `core/device.resolve_device`).  `epoch` pre-seeds the watermark (the
+    interval index of the active bucket)."""
+    s = spec.sketch
+    tables = zeros((spec.buckets, s.depth, s.storage_width),
+                   s.storage_dtype, resolve_device(device))
+    return WindowedSketch(tables=tables, cursor=0, spec=spec,
+                          epoch=None if epoch is None else int(epoch))
+
+
+def _set_bucket(tables: torch.Tensor, b: int, table) -> torch.Tensor:
+    """A copy of the leaf `tables` with bucket b replaced by `table` (or
+    zeroed when `table` is None)."""
+    out = tables.clone()
+    if table is None:
+        signed_view(out)[b] = 0
+    else:
+        signed_view(out)[b] = signed_view(table)
+    return out
+
+
+def window_update(win: WindowedSketch, keys, rng, weights=None
+                  ) -> WindowedSketch:
+    """Conservative-update the active bucket (`sk.update_batched`)."""
+    s = sk.update_batched(win.bucket(win.cursor), keys, rng,
+                          weights=weights)
+    return dataclasses.replace(
+        win, tables=_set_bucket(win.tables, win.cursor, s.table))
+
+
+def window_rotate(win: WindowedSketch) -> WindowedSketch:
+    """Advance the ring one interval: the oldest bucket becomes the new
+    (zeroed) active bucket."""
+    nxt = (win.cursor + 1) % win.spec.buckets
+    return dataclasses.replace(win, tables=_set_bucket(win.tables, nxt, None),
+                               cursor=nxt)
+
+
 def interval_epoch(spec: WindowSpec, ts) -> int:
     """Interval index (watermark epoch) owning event timestamp `ts`."""
     if spec.interval <= 0:
@@ -102,6 +158,25 @@ def window_advance_steps(win: WindowedSketch, steps: int) -> WindowedSketch:
     epoch = None if win.epoch is None else win.epoch + steps
     return dataclasses.replace(win, tables=tables,
                                cursor=(win.cursor + steps) % b, epoch=epoch)
+
+
+def window_advance_to(win: WindowedSketch, ts) -> WindowedSketch:
+    """Watermark-driven rotation: advance the ring to the bucket owning
+    event time `ts` (0..B rotations; a full ring or more zeroes every
+    bucket).  Timestamps may jitter within one interval, but one behind
+    the ring's watermark interval raises."""
+    epoch = interval_epoch(win.spec, ts)
+    if win.epoch is None:
+        return dataclasses.replace(win, epoch=epoch)
+    have = int(win.epoch)
+    if epoch < have:
+        raise ValueError(
+            f"non-monotone watermark: ts {ts} (interval {epoch}) is behind "
+            f"the ring's watermark interval {have}")
+    steps = epoch - have
+    if steps == 0:
+        return win
+    return dataclasses.replace(window_advance_steps(win, steps), epoch=epoch)
 
 
 def cold_advance(tables: np.ndarray, cursor: int, steps: int) -> np.ndarray:
@@ -183,3 +258,137 @@ def window_query_many(wins: list, keys, n_buckets: int | None = None,
                                      device=tables.device)
     return ops.window_query_stacked(rings, wins[0].spec.sketch, keys,
                                     weights, mode=mode, engine=engine)
+
+
+# --------------------------------------------------------------------------
+# exponential decay in estimate space
+# --------------------------------------------------------------------------
+
+def _check_gamma(gamma: float) -> None:
+    if not 0.0 < gamma <= 1.0:
+        raise ValueError("gamma must be in (0, 1]")
+
+
+def decay(sketch: Sketch, gamma: float, rng) -> Sketch:
+    """Scale every cell's estimate by gamma with a stochastic re-encode
+    (`CounterSpec.reencode_stochastic`, `rng` a raw key): E[decode(new)]
+    == gamma * decode(old) cell for cell.  Works on the logical cells
+    (packed storage unpacks first)."""
+    _check_gamma(gamma)
+    c = sketch.spec.counter
+    states = sk.logical_table(sketch.table, sketch.spec)
+    v = c.decode(states) * f32_const(gamma, states.device)
+    table = sk.storage_table(c.cells(c.reencode_stochastic(v, rng)),
+                             sketch.spec)
+    return Sketch(table=table, spec=sketch.spec)
+
+
+@dataclasses.dataclass
+class DecayedSketch:
+    """Recency-weighted counts: events of age a (in rotations) carry
+    weight gamma^a.  ONE (B+1, d, w) leaf: the ring's buckets at [:B]
+    hold the last B rotations' events undecayed, the tail at [B] all
+    older mass, so that gamma^B * decode(tail) is its query-time share.
+    `win` / `tail` are views of the leaf."""
+
+    tables: torch.Tensor  # (B+1, d, w): last B rotations' buckets + tail
+    cursor: int           # active (age-0) ring bucket
+    spec: WindowSpec      # ring geometry (B buckets)
+    gamma: float
+
+    @property
+    def win(self) -> WindowedSketch:
+        """Ring view over the leaf's first B buckets."""
+        return WindowedSketch(tables=self.tables[:self.spec.buckets],
+                              cursor=self.cursor, spec=self.spec)
+
+    @property
+    def tail(self) -> torch.Tensor:
+        """(d, w) view of the older-than-the-ring mass (bucket B)."""
+        return self.tables[self.spec.buckets]
+
+
+def decayed_init(spec: SketchSpec, gamma: float = 0.98, history: int = 8,
+                 device=None) -> DecayedSketch:
+    """`history` = ring depth B: ages 0..B-1 are queried from their own
+    bucket, older mass from the shared tail.  On `device`: CUDA unless
+    the caller passes "cpu"."""
+    _check_gamma(gamma)
+    tables = zeros((history + 1, spec.depth, spec.storage_width),
+                   spec.storage_dtype, resolve_device(device))
+    return DecayedSketch(tables=tables, cursor=0,
+                         spec=WindowSpec(sketch=spec, buckets=history),
+                         gamma=gamma)
+
+
+def decayed_rotate(ds: DecayedSketch, rng) -> DecayedSketch:
+    """Age every event one rotation: fold ONLY the expiring bucket into
+    the tail (V' = V_expiring + gamma * V_tail, one decode, add and
+    stochastic re-encode of a (d, w) table), then zero it as the new
+    active bucket."""
+    b = ds.spec.buckets
+    spec = ds.spec.sketch
+    c = spec.counter
+    nxt = (ds.cursor + 1) % b
+    expiring = sk.logical_table(ds.tables[nxt], spec)
+    tail = sk.logical_table(ds.tail, spec)
+    v = (c.decode(expiring)
+         + f32_const(ds.gamma, tail.device) * c.decode(tail))
+    folded = sk.storage_table(c.cells(c.reencode_stochastic(v, rng)), spec)
+    tables = _set_bucket(ds.tables, b, folded)
+    signed_view(tables)[nxt] = 0
+    return dataclasses.replace(ds, tables=tables, cursor=nxt)
+
+
+def decayed_update(ds: DecayedSketch, keys, rng, weights=None,
+                   age_step: bool = True) -> DecayedSketch:
+    """Absorb a batch at age 0, by default aging the ring one step first
+    (one batch == one rotation); age_step=False micro-batches within one
+    rotation interval.  `rng` splits into the rotation's and the
+    update's keys (`prng.split`, as the reference's)."""
+    r_rot, r_upd = prng.split(rng, 2)
+    if age_step:
+        ds = decayed_rotate(ds, r_rot)
+    s = sk.update_batched(Sketch(table=ds.tables[ds.cursor],
+                                 spec=ds.spec.sketch), keys, r_upd,
+                          weights=weights)
+    return dataclasses.replace(
+        ds, tables=_set_bucket(ds.tables, ds.cursor, s.table))
+
+
+def _integer_pow(x: np.float32, n: int) -> np.float32:
+    """x ** n for a Python int n >= 1 by binary exponentiation in float32
+    multiplications -- the reference's `g ** b` (`lax.integer_pow`),
+    which can differ from a float pow by an ulp."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else np.float32(acc * x)
+        n >>= 1
+        if n > 0:
+            x = np.float32(x * x)
+    return np.float32(1.0) if acc is None else acc
+
+
+def decayed_weights_host(cursor: int, buckets: int, gamma: float
+                         ) -> np.ndarray:
+    """(B+1,) float32 query weights of a decayed leaf: gamma^age of each
+    ring bucket (a float32 pow), then gamma^B for the tail (binary
+    exponentiation, as the reference computes it)."""
+    g = np.float32(gamma)
+    ages = torch.from_numpy((int(cursor) - np.arange(buckets)) % buckets)
+    ring = torch.pow(torch.tensor(g), ages.to(torch.float32)).numpy()
+    return np.concatenate([ring, [_integer_pow(g, buckets)]]).astype(
+        np.float32)
+
+
+def decayed_query(ds: DecayedSketch, keys, engine: str = "auto"
+                  ) -> torch.Tensor:
+    """Recency-weighted estimates: ONE window-query launch over the
+    (B+1, d, w) leaf (the tail rides as bucket B+1 with weight gamma^B).
+    The weights are computed on the host and uploaded without a
+    synchronize.  float32 (N,)."""
+    weights = staging.upload(ds.tables.device, decayed_weights_host(
+        ds.cursor, ds.spec.buckets, ds.gamma))[0]
+    return ops.window_query_tables(ds.tables, ds.spec.sketch, keys, weights,
+                                   mode="sum", engine=engine)

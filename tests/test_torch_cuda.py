@@ -1246,3 +1246,62 @@ def test_enqueue_to_a_cold_tenant_launches_nothing(cuda):
     for p, r in zip(svc.planes, ring):
         assert torch.equal(signed_view(p.ring.queue), r)
     assert svc.planes[0].tier.hfill[5:8].tolist() == [100, 50, 70]
+
+
+# ---- the algebra slice: the decayed leaf and the probe ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("history", [8, 16, 32], ids=["b9", "b17", "b33"])
+@pytest.mark.parametrize("name,packed", FORMATS)
+def test_decayed_query_on_the_odd_leaf_equals_plain(cuda, name, packed,
+                                                    history):
+    """Kernel 7 on a decayed (B+1, d, w) leaf, B+1 = 9, 17, 33 (every
+    weight non-zero, the tail last; 33 is two rounds of 32 buckets):
+    equal to the plain engine, and one launch a query."""
+    spec = _spec(name, packed)
+    ds = tw.decayed_init(spec, gamma=0.7, history=history, device=cuda)
+    rng = np.random.default_rng(history)
+    for i in range(history + 3):
+        keys = torch.from_numpy(rng.zipf(1.3, 3000).astype(np.int64) % 5000)
+        ds = tw.decayed_update(ds, keys.to(cuda), [history, i],
+                               age_step=i % 4 != 3)
+    probes = np.arange(777, dtype=np.uint32)
+    ksk.reset_kernel_launches()
+    got = tw.decayed_query(ds, probes)
+    assert ksk.kernel_launches()["window_query"] == 1
+    want = tw.decayed_query(ds, probes, engine="plain")
+    assert torch.equal(got, want)
+    assert float(got.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_probe_on_service_equals_plain_and_appends_without_sync(cuda):
+    """A tracked service with an AccuracyProbe, kernels against the plain
+    engine on the card: the same shadow counts and ARE deciles, and the
+    kernels' `enqueue_many` under set_sync_debug_mode("error")."""
+    from repro_torch.obs import AccuracyProbe
+    spec = _spec("CMLS16", False)
+    names = [f"t{i}" for i in range(4)]
+    out = []
+    for engine in ("auto", "plain"):
+        probe = AccuracyProbe(rate=0.2, capacity=512)
+        svc = CountService(spec, tenants=names, queue_capacity=4096,
+                           track_top=8, device=cuda, engine=engine,
+                           probe=probe)
+        rng = np.random.default_rng(4)
+        for _ in range(3):
+            events = {n: rng.zipf(1.3, 1000).astype(np.uint32) % 999
+                      for n in names}
+            torch.cuda.synchronize()
+            before = torch.cuda.get_sync_debug_mode()
+            if engine == "auto":   # the plain engine's appends copy
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                svc.enqueue_many(events)
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+        svc.flush()
+        out.append((probe.counts, probe.record(svc)))
+    (ca, ra), (cb, rb) = out
+    assert ca == cb and sorted(ra) == names
+    assert ra == rb

@@ -46,7 +46,9 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.core.prng", "repro_torch.core.sketch",
               "repro_torch.core.staging", "repro_torch.core.admission",
               "repro_torch.core.device", "repro_torch.core.sharded",
-              "repro_torch.stream.tiering", "repro_torch.train.checkpoint"):
+              "repro_torch.stream.tiering", "repro_torch.train.checkpoint",
+              "repro_torch.core.estimators", "repro_torch.obs.probes",
+              "repro_torch.obs.export"):
         assert m in res["modules"]
 
 
@@ -87,6 +89,29 @@ def test_sketch_init_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         sketch.init(spec, device="cuda")
     assert sketch.init(spec, device="cpu").table.device.type == "cpu"
+
+
+@pytest.mark.parametrize("ctor", ["topk.init_stacked", "window_init",
+                                  "decayed_init"])
+def test_state_constructors_raise_without_cuda(ctor, no_cuda):
+    """The public constructors of tracker, ring and decayed state run on
+    CUDA unless asked for the CPU: without a GPU, no device raises, and
+    device="cpu" builds on the CPU."""
+    from repro_torch.core import CMLS16, SketchSpec, topk
+    from repro_torch.stream import WindowSpec, decayed_init, window_init
+    spec = SketchSpec(width=256, counter=CMLS16)
+    build = {
+        "topk.init_stacked": lambda **kw: topk.init_stacked(3, 4, **kw).keys,
+        "window_init": lambda **kw: window_init(
+            WindowSpec(sketch=spec, buckets=2), **kw).tables,
+        "decayed_init": lambda **kw: decayed_init(spec, history=2,
+                                                  **kw).tables,
+    }[ctor]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(device="cuda")
+    assert build(device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):

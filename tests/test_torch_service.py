@@ -259,11 +259,26 @@ def test_tiered_state_crosses_over_mid_stream(way, tmp_path):
 
 
 def test_out_of_slice_features_raise(tmp_path):
-    _, ts = _specs("CMS32", False)
-    svc = TService(ts, tenants=["a"], track_top=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsk.update_batched(svc.sketch_of("a"), torch.zeros(2), [0, 0],
-                           damp_alpha=0.5)
+    """The damped update, out of the earlier slices, now runs on a
+    tenant's sketch as the reference's does; an unknown update or merge
+    mode raises ValueError, as in the reference."""
+    js, ts = _specs("CMS32", False)
+    a = JService(js, tenants=["a"], track_top=4)
+    b = TService(ts, tenants=["a"], track_top=4, device="cpu")
+    keys = np.arange(300, dtype=np.uint32) % 97
+    a.enqueue("a", keys)
+    b.enqueue("a", keys)
+    key = np.asarray([5, 6], np.uint32)
+    want = jsk.update_batched(a.sketch_of("a"), jnp.asarray(keys), key,
+                              damp_alpha=0.5)
+    got = tsk.update_batched(b.sketch_of("a"), torch.from_numpy(keys), key,
+                             damp_alpha=0.5)
+    np.testing.assert_array_equal(tc.to_numpy(got.table),
+                                  np.asarray(want.table))
+    with pytest.raises(ValueError, match="unknown update mode"):
+        tsk.update(got, torch.from_numpy(keys), key, mode="eager")
+    with pytest.raises(ValueError, match="unknown merge mode"):
+        tsk.merge(got, got, mode="sum")
 
 
 @pytest.mark.parametrize("tier,exc", [
@@ -278,10 +293,18 @@ def test_bad_tier_spec_raises(tier, exc):
         TService(ts, track_top=4, tier=tier(), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(probe=object())])
+@pytest.mark.parametrize("kw", [dict(queue_capacity=0),
+                                dict(track_top=0)])
 def test_out_of_slice_construction_raises(kw):
+    """Every construction argument of the reference is in the port now
+    (the accuracy probe came last: `probe=` builds); bad values raise
+    ValueError, as the reference's do."""
+    from repro_torch.obs import AccuracyProbe
     _, ts = _specs("CMS32", False)
+    probe = AccuracyProbe()
+    assert TService(ts, track_top=4, probe=probe,
+                    device="cpu").probe is probe
     args = dict(track_top=4, device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TService(ts, **args)

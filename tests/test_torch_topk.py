@@ -95,7 +95,7 @@ def test_refresh_stacked_matches():
 
 def test_init_stacked_matches():
     j = jtk.init_stacked(3, 5)
-    t = ttk.init_stacked(3, 5)
+    t = ttk.init_stacked(3, 5, device="cpu")
     assert np.array_equal(tc.to_numpy(t.keys), np.asarray(j.keys))
     assert np.array_equal(t.estimates.numpy(), np.asarray(j.estimates))
     assert np.array_equal(t.filled.numpy(), np.asarray(j.filled))

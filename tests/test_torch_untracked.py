@@ -105,10 +105,13 @@ def test_update_batched_past_one_shot_limit():
                            torch.from_numpy(keys.astype(np.int64)), key,
                            weights=torch.from_numpy(w))
     np.testing.assert_array_equal(tc.to_numpy(b.table), np.asarray(a.table))
-    with pytest.raises(NotImplementedError):
-        tsk.update_batched(tsk.init(ts, device="cpu"),
-                           torch.zeros(3, dtype=torch.int64), key,
+    # the damped update (ported since the algebra slice) at this size
+    a = jsk.update_batched(jsk.init(js), jnp.asarray(keys), key,
                            damp_alpha=0.5)
+    b = tsk.update_batched(tsk.init(ts, device="cpu"),
+                           torch.from_numpy(keys.astype(np.int64)), key,
+                           damp_alpha=0.5)
+    np.testing.assert_array_equal(tc.to_numpy(b.table), np.asarray(a.table))
 
 
 def test_update_many_and_rows_switch_to_one_shot_past_limit():

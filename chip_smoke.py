@@ -2882,6 +2882,382 @@ def algebra_phase(dev, formats) -> tuple:
     return launches, res, drives
 
 
+# ---- phase 13 of slice 10: the repair, the paper's path, sharded at W = 1 ---
+
+REPAIR_WIDTH = 1 << 20   # (2, 1,048,576) tables of the repair check
+TOPK_K = 64
+TOPK_BATCHES = 16
+TOPK_KEYS = 65_536
+PAPER_CHUNK = 131_072    # benchmarks/common.py count_stream's chunk
+PAPER_TWINS = (32_768, 4_194_304)  # budgets also counted on the CPU
+ROUTE_CAP = 1 << 17      # per-rank capacity of the routed calls
+ULP8 = 8 * 2.0 ** -23
+
+
+def random_states(rng, counter, shape) -> np.ndarray:
+    """Cell states spread over the whole range, a third of them empty."""
+    s = rng.integers(0, counter.max_state + 1, shape, dtype=np.int64)
+    s[rng.random(shape) < 1 / 3] = 0
+    return s
+
+
+def repair_check(dev) -> dict:
+    """(a): merge(estimate_sum) with a key and without one, and decay, on
+    (2, 1,048,576) CMLS16 and CMLS8 tables on the card and on the CPU:
+    0 cells apart (the re-encode runs in `core/xla_f32`'s math, the same
+    bits on any device).  Then decayed_rotate's ms on a (9, 2, 1,048,576)
+    CMLS16 leaf."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import CMLS8, CMLS16
+    from repro_torch.stream import window as wnd
+    rng = np.random.default_rng(SEED + 31)
+    res = {}
+    for fname, counter in (("CMLS16", CMLS16), ("CMLS8", CMLS8)):
+        spec = sk.SketchSpec(width=REPAIR_WIDTH, depth=2, counter=counter)
+        host = [sk.Sketch(sk.storage_table(torch.from_numpy(
+            random_states(rng, counter, (2, REPAIR_WIDTH))), spec), spec)
+            for _ in range(2)]
+        card = [sk.Sketch(h.table.to(dev), spec) for h in host]
+        apart = {}
+        for what, key in (("merge_key", [31, 1]), ("merge_floor", None)):
+            got = sk.merge(*card, mode="estimate_sum", rng=key)
+            want = sk.merge(*host, mode="estimate_sum", rng=key)
+            apart[what] = int((sk.logical_table(got.table.cpu(), spec)
+                               != sk.logical_table(want.table, spec)).sum())
+        got = wnd.decay(card[0], ALG_GAMMA, [31, 2])
+        want = wnd.decay(host[0], ALG_GAMMA, [31, 2])
+        apart["decay"] = int((sk.logical_table(got.table.cpu(), spec)
+                              != sk.logical_table(want.table, spec)).sum())
+        if any(apart.values()):
+            fail(f"repair {fname}: cells apart card / CPU {apart}")
+        res[fname] = apart
+    spec = sk.SketchSpec(width=REPAIR_WIDTH, depth=2, counter=CMLS16)
+    ds = wnd.decayed_init(spec, gamma=ALG_GAMMA, history=ALG_HISTORY,
+                          device=dev)
+    for i in range(ALG_HISTORY + 2):
+        keys = torch.from_numpy(zipf_keys(rng, ALG_KEYS).astype(np.int64))
+        ds = wnd.decayed_update(ds, keys.to(dev), [31, 10 + i])
+    res["decayed_rotate_ms"] = cuda_ms(
+        lambda: wnd.decayed_rotate(ds, [31, 99]), 10)
+    log(f"repair: merge(estimate_sum) with a key / without, decay on "
+        f"(2, {REPAIR_WIDTH}) tables, cells apart card / CPU {res}; "
+        f"decayed_rotate {res['decayed_rotate_ms']:.4f} ms on the "
+        f"{tuple(ds.tables.shape)} CMLS16 leaf (with torch's expm1 / "
+        f"log1p: 3.44-5.03 ms on an NVIDIA H100 80GB HBM3, 700 W)")
+    return res
+
+
+def topk_check(dev) -> dict:
+    """(b): a k = 64 tracker over a 4 MiB CMLS16 sketch refreshed by 16
+    batches of 65,536 Zipf(1.3) keys, on the card and, from a copy of the
+    same table, on the CPU: the same keys and occupancy; the estimates'
+    bits counted (torch's CUDA and CPU expm1 may differ by an ulp), each
+    within 8 ulp."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.core import topk
+    from repro_torch.core.counters import CMLS16, signed_view
+    rng = np.random.default_rng(SEED + 32)
+    spec = sk.SketchSpec.from_memory(BUDGET, depth=2, counter=CMLS16)
+    s = sk.init(spec, device=dev)
+    tr_c = topk.init(TOPK_K, device=dev)
+    tr_h = topk.init(TOPK_K, device="cpu")
+    bits_apart, ms = 0, []
+    for i in range(TOPK_BATCHES):
+        batch = torch.from_numpy(zipf_keys(rng, TOPK_KEYS).astype(np.int64))
+        s = sk.update_batched(s, batch.to(dev), [32, i])
+        host = sk.Sketch(s.table.cpu(), spec)
+        bd = batch.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr_c = topk.refresh(tr_c, s, bd)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tr_h = topk.refresh(tr_h, host, batch)
+        if not (torch.equal(signed_view(tr_c.keys).cpu(),
+                            signed_view(tr_h.keys))
+                and torch.equal(tr_c.filled.cpu(), tr_h.filled)):
+            fail(f"topk.refresh batch {i}: keys or filled differ card / CPU")
+        a, b = tr_c.estimates.cpu(), tr_h.estimates
+        bits_apart += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        if not bool(((a - b).abs() <= ULP8 * b.abs()).all()):
+            fail(f"topk.refresh batch {i}: estimates past 8 ulp card / CPU")
+    if not bool(tr_c.filled.all()):
+        fail("topk.refresh: the tracker did not fill")
+    res = {"estimate_bits_apart": bits_apart,
+           "refresh_ms": summary(ms),
+           "top3": [(int(k), float(e)) for k, e in
+                    zip(tr_c.keys[:3].cpu().tolist(), tr_c.estimates[:3])]}
+    log(f"topk.refresh: k={TOPK_K} over a {spec.memory_bytes} B CMLS16 "
+        f"sketch, {TOPK_BATCHES} batches of {TOPK_KEYS} keys: keys and "
+        f"filled equal card / CPU, {bits_apart} estimate bits apart of "
+        f"{TOPK_BATCHES * TOPK_K}; {res}")
+    return res
+
+
+def paper_sweep(dev) -> dict:
+    """(c): the calibrated 500k-token corpus's event stream counted in
+    every variant x budget of the port's PaperSketchConfig on the card
+    (update_batched in chunks, `benchmarks/common.py count_stream`), ARE
+    over the distinct keys through ops.query (kernel 1); the 32 KiB and 4
+    MiB sketches of each variant counted on the CPU too (CMS32 equal, log
+    cells one state apart on at most 1e-4 of the cells)."""
+    from repro_torch.configs.paper_sketch import CFG
+    from repro_torch.core import prng
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import from_numpy
+    from repro_torch.data import corpus, ngrams
+    from repro_torch.kernels import ops
+    toks = corpus.generate(corpus.CorpusSpec())
+    events = ngrams.event_stream(toks)
+    uniq, true = ngrams.exact_counts(events)
+    probes = from_numpy(uniq, dev)
+    chunks = [events[i:i + PAPER_CHUNK]
+              for i in range(0, len(events), PAPER_CHUNK)]
+    keys, rng = [], np.array([0, 0], np.uint32)
+    for _ in chunks:
+        rng, k = prng.split(rng, 2)
+        keys.append(k)
+    dev_chunks = [from_numpy(c, dev) for c in chunks]
+
+    def count(spec, device, parts):
+        s = sk.init(spec, device=device)
+        for c, k in zip(parts, keys):
+            s = sk.update_batched(s, c, k)
+        return s
+
+    are, apart, t0 = {}, {}, time.perf_counter()
+    for variant in CFG.variants:
+        are[variant] = {}
+        for budget in CFG.budgets:
+            spec = CFG.spec(variant, budget)
+            s = count(spec, dev, dev_chunks)
+            est = ops.query(s, probes).cpu().numpy()
+            if est.shape != true.shape or not np.isfinite(est).all():
+                fail(f"paper sweep {variant} {budget}: answers not finite")
+            are[variant][budget] = float(np.mean(np.abs(est - true) / true))
+            if budget in PAPER_TWINS:
+                host = count(spec, "cpu",
+                             [torch.from_numpy(c.astype(np.int64))
+                              for c in chunks])
+                apart[f"{variant}/{budget}"] = cells_apart(
+                    s.table, host.table, spec,
+                    f"paper sweep {variant} {budget}")
+    seconds = time.perf_counter() - t0
+    log(f"paper sweep: {len(events)} events ({len(uniq)} distinct) into "
+        f"{len(CFG.variants) * len(CFG.budgets)} sketches; cells apart "
+        f"card / CPU {apart}; {seconds:.1f} s")
+    log("paper sweep ARE (Fig. 1), budget kB: "
+        + ", ".join(f"{b // 1024}" for b in CFG.budgets))
+    for variant, row in are.items():
+        log(f"  {variant:10s} " + " ".join(f"{row[b]:.6f}"
+                                           for b in CFG.budgets))
+    small = CFG.budgets[0]
+    if not are["CMLS16-CU"][small] < are["CMS-CU"][small]:
+        fail(f"paper sweep: CMLS16 ARE {are['CMLS16-CU'][small]} not below "
+             f"CMS-CU's {are['CMS-CU'][small]} at {small} B")
+    return {"are": are, "cells_apart": apart, "events": int(len(events)),
+            "distinct": int(len(uniq)), "seconds": seconds}
+
+
+def close_ranking(a_ids, b_ids, score) -> bool:
+    """Rank for rank the same pick, or picks whose scores (under `score`,
+    id -> float) lie within 8 ulp: equal up to ulp-level ties."""
+    return len(a_ids) == len(b_ids) and all(
+        x == y or abs(score(x) - score(y)) <= ULP8 * abs(score(y))
+        for x, y in zip(a_ids, b_ids))
+
+
+def examples_check(dev) -> dict:
+    """(d): the three examples at their default sizes through main(), on
+    the card and on the CPU: equal numbers (ARE and RMSE within 2e-6 and
+    1e-5, the last decode's ulp; rankings equal up to ulp-level ties).
+    The card run's printed lines go to the log."""
+    import contextlib
+    import io
+    import quickstart_torch
+    import streaming_pmi_torch
+    import trending_items_torch
+    res = {}
+    for mod in (quickstart_torch, streaming_pmi_torch, trending_items_torch):
+        name = mod.__name__
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            card = mod.main([])
+        t_card = time.perf_counter() - t0
+        with contextlib.redirect_stdout(io.StringIO()):
+            host = mod.main(["--device", "cpu"])
+        for line in out.getvalue().splitlines():
+            log(f"  {name}: {line}")
+        if mod is quickstart_torch:
+            ok = card["kernel_estimates"] == host["kernel_estimates"] and all(
+                abs(card["are"][k] - v) <= 2e-6 for k, v in host["are"].items())
+            res[name] = {"are": card["are"],
+                         "kernel_estimates": card["kernel_estimates"]}
+        elif mod is streaming_pmi_torch:
+            pmi = dict(zip(host["pairs"], host["pmi_est"].tolist()))
+            ok = (abs(card["rmse"] - host["rmse"]) <= 1e-5
+                  and card["bigrams"] == host["bigrams"]
+                  and close_ranking(card["top10"], host["top10"],
+                                    pmi.__getitem__))
+            res[name] = {"rmse": card["rmse"], "bigrams": card["bigrams"],
+                         "top10": card["top10"]}
+        else:
+            ok = card["hits"] == host["hits"] and card["board_hits"] == \
+                host["board_hits"]
+            for board, ids in host["ranked"].items():
+                sc = host["scores"][board]
+                ok &= close_ranking(card["ranked"][board], ids,
+                                    lambda k, sc=sc: float(sc[k]))
+            for board, ids in host["boards"].items():
+                est = dict(zip(ids, host["board_estimates"][board]))
+                ok &= close_ranking(card["boards"][board], ids,
+                                    lambda k, est=est: est.get(k, -1.0))
+            res[name] = {"hits": card["hits"],
+                         "board_hits": card["board_hits"],
+                         "boards": card["boards"]}
+        if not ok:
+            fail(f"example {name}: the card's numbers differ from the CPU's")
+        res[name]["card_seconds"] = t_card
+    log(f"examples on the card equal the CPU: {res}")
+    return res
+
+
+def sharded_check(dev, tmp: str) -> dict:
+    """(e): every function of core/sharded.py on a one-rank NCCL group
+    (a FileStore in a temporary directory), each equal to its
+    single-device composition: the merges are identities, the lazy and
+    routed updates are update_batched / window_update of the dispatched
+    keys, the routed reads equal ops.query / window_query (kernel 7),
+    capacity overflow answers -1.0, routed_topk and routed_admit equal
+    the local tracker's reselect and admit_tracked, merged_metrics is the
+    identity."""
+    import torch.distributed as dist
+    from repro_torch.core import admission, sharded, topk
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import CMLS16, signed_view, to_i64
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import mesh
+    from repro_torch.stream import WindowSpec
+    from repro_torch.stream import window as wnd
+
+    def same(a, b, what):
+        if not torch.equal(signed_view(a), signed_view(b)):
+            fail(f"sharded W=1 {what}: differs from its composition")
+
+    t0 = time.perf_counter()
+    mesh.init_group(1, 0, backend="nccl", init_file=f"{tmp}/store")
+    try:
+        rng = np.random.default_rng(SEED + 33)
+        spec = sk.SketchSpec.from_memory(BUDGET, depth=2, counter=CMLS16,
+                                         packed=True)
+        keys = torch.from_numpy(zipf_keys(rng, ALG_KEYS).astype(np.int64)
+                                ).to(dev)
+        valid = lambda flat: (to_i64(flat) != sharded.SENTINEL).to(
+            torch.float32)
+        local = sk.update_batched(sk.init(spec, device=dev), keys, [33, 0])
+        same(sharded.pmax_merge(local).table, local.table, "pmax_merge")
+        same(sharded.lazy_update(local, keys, [33, 1], 1, 2).table,
+             sk.update_batched(local, keys, [33, 1]).table, "lazy_update")
+        wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+        win = wnd.window_init(wspec, epoch=0, device=dev)
+        win = wnd.window_update(win, keys, [33, 2])
+        same(sharded.pmax_merge_window(win).tables, win.tables,
+             "pmax_merge_window")
+        same(sharded.lazy_update_window(win, keys, [33, 3], 1, 2).tables,
+             wnd.window_update(win, keys, [33, 3]).tables,
+             "lazy_update_window")
+        stack = torch.stack([signed_view(local.table)] * 3).view(
+            local.table.dtype)
+        same(sharded.pmax_merge_window_stack(stack, spec), stack,
+             "pmax_merge_window_stack")
+        hot, full = sharded.pmax_merge_tier_stack(
+            stack[:1].clone(), [2], stack.clone(), spec)
+        same(hot, stack[:1], "pmax_merge_tier_stack")
+        same(full, stack, "pmax_merge_tier_stack")
+        buf, _, _ = sharded._dispatch_layout(keys, 1, ROUTE_CAP)
+        flat = buf.reshape(-1)
+        routed = sharded.routed_update(sk.init(spec, device=dev), keys,
+                                       [33, 4], ROUTE_CAP)
+        same(routed.table, sk.update_batched(
+            sk.init(spec, device=dev), flat, [33, 4],
+            weights=valid(flat)).table, "routed_update")
+        probes = keys[:PROBES]
+        ksk.reset_kernel_launches()
+        got = sharded.routed_query(routed, probes, ROUTE_CAP)
+        same(got, ops.query(routed, probes, engine="plain"), "routed_query")
+        small = sharded.routed_query(routed, probes, PROBES // 2)
+        if not (bool((small[PROBES // 2:] == -1.0).all())
+                and torch.equal(small[:PROBES // 2], got[:PROBES // 2])):
+            fail("sharded W=1 routed_query: overflow does not answer -1.0")
+        rwin = wnd.window_init(wspec, epoch=0, device=dev)
+        rwin = sharded.routed_window_update(rwin, keys, [33, 5], ROUTE_CAP,
+                                            epoch=2)
+        want = wnd.window_update(wnd.window_advance_steps(
+            wnd.window_init(wspec, epoch=0, device=dev), 2), flat, [33, 5],
+            weights=valid(flat))
+        same(rwin.tables, want.tables, "routed_window_update")
+        if (rwin.cursor, rwin.epoch) != (2, 2):
+            fail(f"sharded W=1 routed_window_update: cursor {rwin.cursor}")
+        before = ksk.kernel_launches()["window_query"]
+        got = sharded.routed_window_query(rwin, probes, ROUTE_CAP,
+                                          gamma=0.5)
+        torch.cuda.synchronize()
+        if ksk.kernel_launches()["window_query"] != before + 1:
+            fail("sharded W=1 routed_window_query: kernel 7 not launched")
+        same(got, wnd.window_query(rwin, probes, gamma=0.5, engine="plain"),
+             "routed_window_query")
+        launches = ksk.kernel_launches()
+        tr = topk.refresh(topk.init(TOPK_K, device=dev), routed, keys)
+        top = sharded.routed_topk(tr, k=16)
+        want = topk.reselect(tr.keys[None], tr.filled[None],
+                             tr.estimates[None], 16)
+        same(top.keys, want.keys[0], "routed_topk")
+        same(top.estimates, want.estimates[0], "routed_topk")
+        aspec = admission.AdmissionSpec(threshold=8.0)
+        rows, mask = sharded.routed_admit(tr, keys[:4096], aspec)
+        w_rows, w_mask = admission.admit_tracked(tr.keys, tr.estimates,
+                                                 tr.filled, keys[:4096],
+                                                 aspec)
+        same(rows, w_rows, "routed_admit")
+        same(mask, w_mask, "routed_admit")
+        vals = torch.arange(7, dtype=torch.float32, device=dev)
+        for mode in ("sum", "max"):
+            same(sharded.merged_metrics(vals, mode=mode), vals,
+                 f"merged_metrics {mode}")
+    finally:
+        dist.destroy_process_group()
+    res = {"seconds": time.perf_counter() - t0,
+           "routed_read_launches": {k: v for k, v in launches.items() if v},
+           "overflow_answers": int((small == -1.0).sum())}
+    log(f"sharded at world size 1 on NCCL: every function equals its "
+        f"single-device composition; {res}")
+    return res
+
+
+def paper_phase(dev) -> tuple:
+    """Phase 13: the repair at full width, topk.refresh, the paper's
+    sweep, the three examples and the sharded functions at world size 1,
+    (a)-(e).  Returns (kernel launches, the numbers it reports)."""
+    import tempfile
+    from repro_torch.kernels import sketch as ksk
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    res = {"repair": repair_check(dev), "topk": topk_check(dev),
+           "paper_sweep": paper_sweep(dev), "examples": examples_check(dev)}
+    torch.cuda.synchronize()
+    launches = dict(ksk.kernel_launches())
+    with tempfile.TemporaryDirectory() as tmp:
+        res["sharded"] = sharded_check(dev, tmp)
+    for k, v in res["sharded"]["routed_read_launches"].items():
+        launches[k] += v
+    res["seconds"] = time.perf_counter() - t0
+    log(f"paper phase: {res['seconds']:.1f} s; launches {launches}")
+    return launches, res
+
+
 def main(device: str = "cuda") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2890,6 +3266,7 @@ def main(device: str = "cuda") -> None:
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, str(root / "src"))
     sys.path.insert(0, str(root / "tools"))
+    sys.path.insert(0, str(root / "examples"))
     from repro_torch.convert import service_to_numpy
     from repro_torch.core import prng
     from repro_torch.core import sketch as sk
@@ -2904,7 +3281,8 @@ def main(device: str = "cuda") -> None:
     dev = torch.device(device)
     card = gpu_info()
     log(f"device {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
+        f"{np.__version__}")
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3290,6 +3668,9 @@ def main(device: str = "cuda") -> None:
     # ---- 11. the sketch and window algebra, the probe, the export ---------
     alg_launches, alg_report, alg_drives = algebra_phase(dev, formats)
 
+    # ---- 13. the repair, the paper's path, sharded at world size 1 --------
+    paper_launches, paper_report = paper_phase(dev)
+
     # ---- 12. profiles -------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
     # slower (the append wrappers' host time below, before and after), so
@@ -3374,7 +3755,7 @@ def main(device: str = "cuda") -> None:
                     + flat_launches[name] + sync_launches[name]
                     + flush_launches[name] + read_launches[name]
                     + adm_launches[name] + tier_launches[name]
-                    + alg_launches[name])
+                    + alg_launches[name] + paper_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -3384,11 +3765,13 @@ def main(device: str = "cuda") -> None:
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
             f"flushes / sync-free reads / admission and snapshots / "
-            f"tiering / algebra and probe {main_launches[name]} / "
+            f"tiering / algebra and probe / paper path "
+            f"{main_launches[name]} / "
             f"{win_launches[name]} / {flat_launches[name]} / "
             f"{sync_launches[name]} / {flush_launches[name]} / "
             f"{read_launches[name]} / {adm_launches[name]} / "
-            f"{tier_launches[name]} / {alg_launches[name]}")
+            f"{tier_launches[name]} / {alg_launches[name]} / "
+            f"{paper_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3405,7 +3788,7 @@ def main(device: str = "cuda") -> None:
         "append_host_us": append_host},
         "profile_epoch": profile, "window_path": e2e2,
         "admission": adm_report, "tiering": tier_report,
-        "algebra": alg_report}), flush=True)
+        "algebra": alg_report, "paper": paper_report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import xla_f32
+
 _DTYPES = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
 _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 _BITS = {torch.uint8: 8, torch.uint16: 16, torch.uint32: 32}
@@ -105,6 +107,7 @@ def from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 
 _CONSTS: dict = {}
+_XLA_TABLES: dict = {}  # (CounterSpec, "decode" / "point_mass", device)
 
 
 def f32_const(x: float, device) -> torch.Tensor:
@@ -179,19 +182,25 @@ class CounterSpec:
 
     def decode(self, state: torch.Tensor) -> torch.Tensor:
         """Counter state -> unbiased event-count estimate (paper's VALUE)."""
+        return self._decode(state, torch.expm1)
+
+    def _decode(self, state: torch.Tensor, expm1) -> torch.Tensor:
         s = state.to(torch.float32)
         if self.kind == "linear":
             return s
         dev = s.device
-        return torch.expm1(s * f32_const(self.logb, dev)) / f32_const(
+        return expm1(s * f32_const(self.logb, dev)) / f32_const(
             self.bm1, dev)
 
     def point_mass(self, state: torch.Tensor) -> torch.Tensor:
         """Value(c+1) - Value(c) = b^c: estimate mass of one state step."""
+        return self._point_mass(state, torch.exp)
+
+    def _point_mass(self, state: torch.Tensor, exp) -> torch.Tensor:
         s = state.to(torch.float32)
         if self.kind == "linear":
             return torch.ones_like(s)
-        return torch.exp(s * f32_const(self.logb, s.device))
+        return exp(s * f32_const(self.logb, s.device))
 
     def increase_prob(self, state: torch.Tensor) -> torch.Tensor:
         """P(IncreaseDecision(c)) = b^-c (paper Alg. 1); 1 for linear."""
@@ -202,16 +211,49 @@ class CounterSpec:
 
     def encode_floor(self, value: torch.Tensor) -> torch.Tensor:
         """Largest state c with Value(c) <= value (float32 in, float32 out)."""
+        return self._encode_floor(value, torch.log1p, self.decode)
+
+    def _encode_floor(self, value: torch.Tensor, log1p,
+                      decode) -> torch.Tensor:
         v = value.to(torch.float32)
         if self.kind == "linear":
             return torch.floor(v)
         dev = v.device
-        c = torch.floor(torch.log1p(v * f32_const(self.bm1, dev))
+        c = torch.floor(log1p(v * f32_const(self.bm1, dev))
                         / f32_const(self.logb, dev))
         # guard float roundoff: never let Value(c) exceed v by a full step
-        too_high = self.decode(c) > v + f32_const(1e-6, dev) * torch.clamp_min(
-            v, 1.0)
+        too_high = decode(c) > v + f32_const(
+            1e-6, dev) * torch.clamp_min(v, 1.0)
         return torch.clamp_min(c - too_high.to(torch.float32), 0.0)
+
+    # ---- the re-encoding algebra, in the reference's float32 math ----
+
+    def decode_xla(self, state: torch.Tensor) -> torch.Tensor:
+        """`decode` of integral states rounded as the reference's (XLA's
+        CPU) expm1 rounds (`xla_f32`): what `merge(estimate_sum)`, `decay`
+        and the decayed fold decode with before `reencode_stochastic`."""
+        return self._xla_tabled(state, "decode")
+
+    def _xla_tabled(self, state: torch.Tensor, which: str) -> torch.Tensor:
+        """`decode` or `point_mass` of integral states in `xla_f32`'s math,
+        gathered from a table of every state from 0 up to where XLA's exp
+        clamps its argument (88.8; past it neither value changes), built
+        once per device.  Negative states read state 0: the floor's
+        clamp at 0 makes that the same re-encode."""
+        if self.kind == "linear":
+            s = state.to(torch.float32)
+            return s if which == "decode" else torch.ones_like(s)
+        dev = state.device
+        key = (self, which, str(dev))
+        table = _XLA_TABLES.get(key)
+        if table is None:
+            s = torch.arange(math.ceil(88.8 / self.logb) + 2,
+                             dtype=torch.float32, device=dev)
+            table = _XLA_TABLES[key] = (
+                self._decode(s, xla_f32.expm1) if which == "decode"
+                else self._point_mass(s, xla_f32.exp))
+        idx = state.to(torch.float32).clamp(0, table.numel() - 1)
+        return table[idx.to(torch.int64)]
 
     def reencode_stochastic(self, value: torch.Tensor,
                             rng=None) -> torch.Tensor:
@@ -223,14 +265,16 @@ class CounterSpec:
         `rng` is a raw threefry key: one uniform a cell of `value`'s
         shape (`prng.uniform`, JAX's draw bit for bit).  With rng None the
         floor state is returned.  Returns float32 states (float32 rounds
-        CMS32 states past 2^24, as the reference does).
+        CMS32 states past 2^24, as the reference does).  Its expm1, exp
+        and log1p are `xla_f32`'s, so the states equal the reference's.
         """
         from repro_torch.core import prng  # prng imports this module
 
         v = value.to(torch.float32)
-        s = self.encode_floor(v)
+        s = self._encode_floor(v, xla_f32.log1p, self.decode_xla)
         if rng is not None:
-            frac = (v - self.decode(s)) / self.point_mass(s)
+            frac = ((v - self.decode_xla(s))
+                    / self._xla_tabled(s, "point_mass"))
             u = prng.uniform(rng, tuple(s.shape), device=s.device)
             s = s + (u < frac).to(torch.float32)
         return torch.clamp(s, 0.0, float(self.max_state))

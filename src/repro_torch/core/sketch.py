@@ -341,7 +341,7 @@ def merge(a: Sketch, b: Sketch, mode: str = "max", rng=None) -> Sketch:
     if mode == "max":
         table = torch.maximum(ta, tb)
     elif mode == "estimate_sum":
-        v = c.decode(ta) + c.decode(tb)
+        v = c.decode_xla(ta) + c.decode_xla(tb)
         table = c.cells(c.reencode_stochastic(v, rng))
     else:
         raise ValueError(f"unknown merge mode {mode!r}")

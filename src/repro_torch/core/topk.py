@@ -5,7 +5,8 @@ buffer of (key, estimate) pairs per tenant is refreshed with each flush:
 the standing heap joins the flushed batch (`candidates`), every
 candidate is scored against the updated table, and the union is
 re-selected (`reselect`).  `resize_stacked` re-arms a heap stack at
-another width (restore with a changed track_top).
+another width (restore with a changed track_top).  `init` / `refresh`
+serve one sketch: a (k,) buffer, the T = 1 case scored by `sk.query`.
 
 Slot occupancy is an explicit `filled` mask, not a sentinel key: every
 uint32 value, 0xFFFFFFFF included, is a trackable key, and unfilled
@@ -22,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import sketch as sk
 from repro_torch.core.counters import from_i64, signed_view
 from repro_torch.core.device import resolve_device
 from repro_torch.core.hashing import as_i64
@@ -44,6 +46,14 @@ def init_stacked(t: int, k: int, device=None) -> TopK:
                 estimates=torch.full((t, k), -torch.inf, dtype=torch.float32,
                                      device=device),
                 filled=torch.zeros((t, k), dtype=torch.bool, device=device))
+
+
+def init(k: int, device=None) -> TopK:
+    """Cold single-sketch buffer: (k,) keys, estimates and filled, on
+    `device` (CUDA unless the caller passes "cpu")."""
+    one = init_stacked(1, k, device)
+    return TopK(keys=one.keys[0], estimates=one.estimates[0],
+                filled=one.filled[0])
 
 
 def _select(cand: torch.Tensor, valid: torch.Tensor, est: torch.Tensor,
@@ -126,3 +136,18 @@ def resize_stacked(tracker: TopK, k: int) -> TopK:
     keys = torch.gather(signed_view(tracker.keys), 1, idx)
     return TopK(keys=keys.view(torch.uint32), estimates=top_est,
                 filled=top_est > -torch.inf)
+
+
+def refresh(tracker: TopK, sketch: sk.Sketch, batch_keys: torch.Tensor,
+            batch_valid: torch.Tensor | None = None) -> TopK:
+    """Single-sketch refresh, the T = 1 case of `refresh_stacked`: the
+    (k,) buffer joins `batch_keys` (N,) and every candidate is scored by
+    `sk.query` on `sketch`'s current table."""
+    out = refresh_stacked(
+        TopK(keys=tracker.keys[None], estimates=tracker.estimates[None],
+             filled=tracker.filled[None]),
+        batch_keys[None],
+        None if batch_valid is None else batch_valid[None],
+        lambda ck: sk.query(sketch, ck.reshape(-1)).reshape(ck.shape))
+    return TopK(keys=out.keys[0], estimates=out.estimates[0],
+                filled=out.filled[0])

@@ -277,7 +277,7 @@ def decay(sketch: Sketch, gamma: float, rng) -> Sketch:
     _check_gamma(gamma)
     c = sketch.spec.counter
     states = sk.logical_table(sketch.table, sketch.spec)
-    v = c.decode(states) * f32_const(gamma, states.device)
+    v = c.decode_xla(states) * f32_const(gamma, states.device)
     table = sk.storage_table(c.cells(c.reencode_stochastic(v, rng)),
                              sketch.spec)
     return Sketch(table=table, spec=sketch.spec)
@@ -332,8 +332,8 @@ def decayed_rotate(ds: DecayedSketch, rng) -> DecayedSketch:
     nxt = (ds.cursor + 1) % b
     expiring = sk.logical_table(ds.tables[nxt], spec)
     tail = sk.logical_table(ds.tail, spec)
-    v = (c.decode(expiring)
-         + f32_const(ds.gamma, tail.device) * c.decode(tail))
+    v = (c.decode_xla(expiring)
+         + f32_const(ds.gamma, tail.device) * c.decode_xla(tail))
     folded = sk.storage_table(c.cells(c.reencode_stochastic(v, rng)), spec)
     tables = _set_bucket(ds.tables, b, folded)
     signed_view(tables)[nxt] = 0

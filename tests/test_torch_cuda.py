@@ -1305,3 +1305,151 @@ def test_probe_on_service_equals_plain_and_appends_without_sync(cuda):
     (ca, ra), (cb, rb) = out
     assert ca == cb and sorted(ra) == names
     assert ra == rb
+
+
+# --------------------------------------------------------------------------
+# slice 10: the replica math, topk.refresh, the examples, sharded at W = 1
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["exp", "expm1", "tanh", "log", "log1p"])
+def test_xla_f32_card_equals_cpu(cuda, name):
+    """The replica math is plain float32 / float64 torch ops: the same
+    bits on the card as on the CPU (every CMLS16 state argument and
+    log-uniform samples)."""
+    import math
+    from repro_torch.core import xla_f32
+    rng = np.random.default_rng(5)
+    states = np.arange(65536, dtype=np.float32) * np.float32(
+        math.log(1.00025))
+    x = np.concatenate([states, np.exp(rng.uniform(-12, 17, 200_000)),
+                        rng.uniform(0, 1, 100_000)]).astype(np.float32)
+    fn = getattr(xla_f32, name)
+    got = fn(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    want = fn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,packed", FORMATS)
+def test_reencode_algebra_card_equals_cpu(cuda, name, packed):
+    """merge(estimate_sum) with a key and without one, and decay: 0 cells
+    apart between the card and the CPU."""
+    spec = _spec(name, packed, width=8192)
+    rng = np.random.default_rng(6)
+    a, b = (tsk.update_batched(tsk.init(spec, device="cpu"),
+                               torch.from_numpy(rng.zipf(1.3, 20_000)
+                                                .astype(np.int64) % 9999),
+                               [6, i]) for i in range(2))
+    on = [tsk.Sketch(s.table.to(cuda), spec) for s in (a, b)]
+    for key in ([6, 7], None):
+        got = tsk.merge(*on, mode="estimate_sum", rng=key)
+        want = tsk.merge(a, b, mode="estimate_sum", rng=key)
+        assert torch.equal(signed_view(got.table).cpu(),
+                           signed_view(want.table))
+    got = tw.decay(on[0], 0.7, [6, 8])
+    want = tw.decay(a, 0.7, [6, 8])
+    assert torch.equal(signed_view(got.table).cpu(), signed_view(want.table))
+
+
+@pytest.mark.cuda
+def test_topk_refresh_card_equals_cpu(cuda):
+    """A k = 16 tracker over one CMLS16 table refreshed on the card and on
+    the CPU from the same table: the same keys and occupancy; estimates
+    within 8 ulp (torch's CUDA and CPU expm1)."""
+    from repro_torch.core import topk
+    spec = _spec("CMLS16", False, width=1 << 14)
+    rng = np.random.default_rng(7)
+    s = tsk.init(spec, device=cuda)
+    tr_c, tr_h = topk.init(16, device=cuda), topk.init(16, device="cpu")
+    for i in range(6):
+        batch = torch.from_numpy(rng.zipf(1.3, 20_000).astype(np.int64)
+                                 % 50_000)
+        s = tsk.update_batched(s, batch.to(cuda), [7, i])
+        host = tsk.Sketch(s.table.cpu(), spec)
+        tr_c = topk.refresh(tr_c, s, batch.to(cuda))
+        tr_h = topk.refresh(tr_h, host, batch)
+        assert torch.equal(signed_view(tr_c.keys).cpu(),
+                           signed_view(tr_h.keys))
+        assert torch.equal(tr_c.filled.cpu(), tr_h.filled)
+        np.testing.assert_allclose(tr_c.estimates.cpu().numpy(),
+                                   tr_h.estimates.numpy(),
+                                   rtol=8 * 2.0 ** -23)
+    assert bool(tr_c.filled.all())
+
+
+@pytest.mark.cuda
+def test_examples_on_the_card_equal_the_cpu(cuda, capsys):
+    """The three examples at a small size: the same numbers on the card
+    as on the CPU (rankings equal, ARE and RMSE within 1e-5 relative)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "examples"))
+    import quickstart_torch
+    import streaming_pmi_torch
+    import trending_items_torch
+    runs = [(quickstart_torch, ["--events", "20000", "--kernel-events",
+                                "5000"]),
+            (streaming_pmi_torch, ["--tokens", "20000", "--budget-kb", "64"]),
+            (trending_items_torch, ["--rotations", "4", "--per-rotation",
+                                    "2000"])]
+    for mod, args in runs:
+        card = mod.main(args)
+        host = mod.main(args + ["--device", "cpu"])
+        if mod is quickstart_torch:
+            assert card["kernel_estimates"] == host["kernel_estimates"]
+            for k, v in host["are"].items():
+                assert card["are"][k] == pytest.approx(v, rel=1e-5)
+        elif mod is streaming_pmi_torch:
+            assert card["rmse"] == pytest.approx(host["rmse"], rel=1e-5)
+            assert card["bigrams"] == host["bigrams"]
+        else:
+            assert card["boards"] == host["boards"]
+            assert card["hits"] == host["hits"]
+    capsys.readouterr()
+
+
+@pytest.mark.cuda
+def test_sharded_world_one_on_nccl(cuda, tmp_path):
+    """Every rank-local path of `core/sharded.py` on a one-rank NCCL
+    group: the merge is the identity, the routed update / query /
+    window query equal their single-device compositions (kernel 7 for
+    the window), and capacity overflow answers -1.0."""
+    import torch.distributed as dist
+    from repro_torch.core import sharded
+    from repro_torch.launch import mesh
+    mesh.init_group(1, 0, backend="nccl", init_file=str(tmp_path / "store"))
+    try:
+        spec = _spec("CMLS16", True)
+        rng = np.random.default_rng(8)
+        keys = torch.from_numpy(rng.zipf(1.3, 3000).astype(np.int64) % 5000
+                                ).to(cuda)
+        local = tsk.update_batched(tsk.init(spec, device=cuda), keys, [8, 0])
+        merged = sharded.pmax_merge(local)
+        assert torch.equal(signed_view(merged.table), signed_view(local.table))
+        routed = sharded.routed_update(tsk.init(spec, device=cuda), keys,
+                                       [8, 1], 4096)
+        buf, _, _ = sharded._dispatch_layout(keys, 1, 4096)
+        flat = buf.reshape(-1)
+        want = tsk.update_batched(tsk.init(spec, device=cuda), flat, [8, 1],
+                                  weights=(tc.to_i64(flat) != sharded.SENTINEL
+                                           ).to(torch.float32))
+        assert torch.equal(signed_view(routed.table), signed_view(want.table))
+        probes = keys[:500]
+        got = sharded.routed_query(routed, probes, 4096)
+        assert torch.equal(got, ops.query(routed, probes))
+        small = sharded.routed_query(routed, probes, 100)
+        assert bool((small[100:] == -1.0).all())
+        assert torch.equal(small[:100], got[:100])
+        wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+        win = tw.window_init(wspec, epoch=0, device=cuda)
+        win = sharded.routed_window_update(win, keys, [8, 2], 4096, epoch=2)
+        assert (win.cursor, win.epoch) == (2, 2)
+        ksk.reset_kernel_launches()
+        got = sharded.routed_window_query(win, probes, 4096, gamma=0.5)
+        assert ksk.kernel_launches()["window_query"] == 1
+        want = tw.window_query(win, probes, gamma=0.5, engine="plain")
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

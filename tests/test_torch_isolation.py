@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no `repro`, and no silent CPU fallback.
 
-A fresh interpreter imports every `repro_torch` module and
-`chip_smoke.py` and must end with neither `jax` nor `repro` (nor any
-`repro.*` module) loaded.  Entry points that are not given a device run
+A fresh interpreter imports every `repro_torch` module, the port's
+examples (`examples/*_torch.py`) and `chip_smoke.py` and must end with
+neither `jax` nor `repro` (nor any `repro.*` module) loaded.  Entry points that are not given a device run
 on CUDA, so where there is no GPU they raise instead of carrying on on
 the CPU, and `chip_smoke.py` exits non-zero and prints no result there.
 """
@@ -25,6 +25,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+for path in {examples!r}:
+    runpy.run_path(path, run_name="example_import_check")
 runpy.run_path({smoke!r}, run_name="chip_smoke_import_check")
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
@@ -33,7 +35,10 @@ print(json.dumps({{"modules": mods, "bad": bad}}))
 
 
 def test_port_and_chip_smoke_import_no_jax_or_repro():
-    code = _PROBE.format(src=str(SRC), smoke=str(ROOT / "chip_smoke.py"))
+    examples = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 3
+    code = _PROBE.format(src=str(SRC), smoke=str(ROOT / "chip_smoke.py"),
+                         examples=examples)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
@@ -48,7 +53,11 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.core.device", "repro_torch.core.sharded",
               "repro_torch.stream.tiering", "repro_torch.train.checkpoint",
               "repro_torch.core.estimators", "repro_torch.obs.probes",
-              "repro_torch.obs.export"):
+              "repro_torch.obs.export", "repro_torch.core.xla_f32",
+              "repro_torch.core.topk", "repro_torch.data.corpus",
+              "repro_torch.data.ngrams", "repro_torch.configs.registry",
+              "repro_torch.configs.paper_sketch",
+              "repro_torch.launch.mesh"):
         assert m in res["modules"]
 
 
@@ -91,8 +100,8 @@ def test_sketch_init_without_device_raises_without_cuda(no_cuda):
     assert sketch.init(spec, device="cpu").table.device.type == "cpu"
 
 
-@pytest.mark.parametrize("ctor", ["topk.init_stacked", "window_init",
-                                  "decayed_init"])
+@pytest.mark.parametrize("ctor", ["topk.init_stacked", "topk.init",
+                                  "window_init", "decayed_init"])
 def test_state_constructors_raise_without_cuda(ctor, no_cuda):
     """The public constructors of tracker, ring and decayed state run on
     CUDA unless asked for the CPU: without a GPU, no device raises, and
@@ -102,6 +111,7 @@ def test_state_constructors_raise_without_cuda(ctor, no_cuda):
     spec = SketchSpec(width=256, counter=CMLS16)
     build = {
         "topk.init_stacked": lambda **kw: topk.init_stacked(3, 4, **kw).keys,
+        "topk.init": lambda **kw: topk.init(4, **kw).keys,
         "window_init": lambda **kw: window_init(
             WindowSpec(sketch=spec, buckets=2), **kw).tables,
         "decayed_init": lambda **kw: decayed_init(spec, history=2,
@@ -112,6 +122,23 @@ def test_state_constructors_raise_without_cuda(ctor, no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         build(device="cuda")
     assert build(device="cpu").device.type == "cpu"
+
+
+def test_examples_and_nccl_group_raise_without_cuda(no_cuda):
+    """The port's examples run on the card unless given --device cpu, and
+    a NCCL group needs CUDA: without a GPU both raise (no silent gloo)."""
+    from repro_torch.launch import mesh
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+    import streaming_pmi_torch
+    import trending_items_torch
+    for mod in (quickstart_torch, streaming_pmi_torch, trending_items_torch):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+    with pytest.raises(RuntimeError, match="NCCL backend needs CUDA"):
+        mesh.init_group()
+    with pytest.raises(ValueError, match="unsupported backend"):
+        mesh.init_group(backend="mpi")
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):

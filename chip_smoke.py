@@ -164,6 +164,28 @@ exit, no result line) if anything disagrees:
                 pairs; (e) to_prometheus / to_chrome_trace of the
                 phase's registry and tracer written and parsed back;
                 decayed_rotate and decayed_query times;
+ 13. paper path -- merge(estimate_sum) / decay card against CPU at
+                (2, 1,048,576), topk.refresh, the Fig. 1 ARE sweep of
+                `PaperSketchConfig`, the three examples card == CPU, every
+                sharded function at world size 1 on NCCL;
+ 14. recsys -- the sketch-gated recommender path, TF32 off: (a) 12
+                `dlrm_batch`es of 65,536 x 26 Criteo-field ids (the port's
+                Prefetcher) counted in one 4 MiB CMLS16 sketch through
+                `observe_and_admit` with `AdmissionSpec()`, engine
+                "kernel" (kernels 5 and 1) equal to "xla" at every step
+                (tables, rows, masks); (b) dlrm-mlperf's widths (2,368,897
+                dense parameters) on 26 admission-gated tables of
+                1,049,600 rows (13.01 GiB) trained 12 steps on (a)'s rows
+                through `make_train_step`: finite losses, untouched rows
+                bit-identical, peak device memory below 60 GiB; then
+                3 steps at batch 512 on 5,120-row tables card against
+                CPU; (c) `admit` + `dlrm_apply` at serve_p99 and
+                serve_bulk (p50 / p95 of 50 calls), `dlrm_score_candidates`
+                over 1,000,000 candidates, slices card against CPU; (d)
+                two-tower at its full widths, 5 steps at batch 8,192 with
+                the sketch's logQ (kernels 5 and 1), 1,000,000 candidates
+                scored, slices and a small twin card against CPU; (e)
+                `examples/recsys_admission_torch.py` card == CPU;
  12. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
@@ -3257,6 +3279,569 @@ def paper_phase(dev) -> tuple:
     log(f"paper phase: {res['seconds']:.1f} s; launches {launches}")
     return launches, res
 
+# ---- phase 14 of slice 11: the sketch-gated recommender path ----------------
+
+REC_STEPS = 12             # train_batch steps counted, then trained
+REC_BATCH = 65_536         # RECSYS_SHAPES["train_batch"]
+SERVE_CELLS = (("serve_p99", 512), ("serve_bulk", 262_144))
+SERVE_CALLS = 50
+N_CANDIDATES = 1_000_000   # RECSYS_SHAPES["retrieval_cand"]
+CAND_SLICE = 4_096         # candidates held card against CPU
+TT_BATCH = 8_192           # two-tower train batch, cut from 65,536
+TT_STEPS = 5
+TWIN_BATCH = 512           # the card-against-CPU twins' batch
+TWIN_STEPS = 3
+TWIN_ROWS = 4_096          # twin tables: 4,096 private + 1,024 fallback
+PEAK_LIMIT = 60 * 2**30    # full-width DLRM training's device memory
+# card against CPU, normwise relative (max |card - cpu| / max |cpu|):
+# float32 sums in another order on each side; measured at most 2.8e-6
+# for a forward pass, 3.0e-5 for the parameters after TWIN_STEPS steps
+# and 1.2e-8 for the example's BCE (NVIDIA H100 80GB HBM3, 700 W)
+FWD_TOL = 2e-5             # forward passes and losses
+STEP_TOL = 2e-4            # parameters after TWIN_STEPS train steps
+BCE_TOL = 1e-6             # the example's final BCE (absolute)
+
+
+def rel_err(card, host) -> float:
+    """Normwise relative error max |card - host| / max |host|."""
+    card = card.detach().cpu().double()
+    host = host.detach().cpu().double()
+    return float((card - host).abs().max()
+                 / host.abs().max().clamp_min(1e-30))
+
+
+def tree_rel_err(card: dict, host: dict) -> float:
+    from repro_torch.models.params import flatten
+    h = flatten(host)
+    return max(rel_err(v, h[k]) for k, v in flatten(card).items())
+
+
+def upload_ids(a: np.ndarray, dev) -> torch.Tensor:
+    """Non-negative int32 ids as a flat torch.uint32 tensor on `dev`."""
+    from repro_torch.core.counters import from_numpy
+    return from_numpy(np.ascontiguousarray(a).reshape(-1).view(np.uint32),
+                      dev)
+
+
+def to_dev(b: dict, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in b.items()}
+
+
+def admission_stream(dev, aspec):
+    """(a): REC_STEPS `dlrm_batch`es of the train_batch shape over the
+    Criteo cardinalities (26 fields, 1,703,936 ids a step), generated by
+    the port's Prefetcher, counted in one 4 MiB CMLS16 sketch through
+    `observe_and_admit` with engine "kernel" and, beside it, "xla": the
+    sketch tables, rows and masks must be equal at every step.  Returns
+    (the steps' device batches on the admitted rows, the sketch, the
+    numbers it reports)."""
+    from repro_torch.core import CMLS16, SketchSpec, prng
+    from repro_torch.core import admission as adm
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.counters import signed_view
+    from repro_torch.data import pipeline, recsys_stream
+    from repro_torch.models.recsys import criteo_tables
+    spec = SketchSpec.from_memory(BUDGET, depth=2, counter=CMLS16)
+    kern, xla = sk.init(spec, dev), sk.init(spec, dev)
+    src = pipeline.BatchSource(lambda s, sh, n: recsys_stream.dlrm_batch(
+        s, sh, n, global_batch=REC_BATCH, table_sizes=criteo_tables(),
+        seed=SEED))
+    pf = pipeline.Prefetcher(src, 0, 1, depth=2)
+    key = np.asarray([SEED, 14], np.uint32)
+    stream, ms, admitted, distinct = [], [], [], []
+    try:
+        for step, b in pf:
+            if step >= REC_STEPS:
+                break
+            key, k = prng.split(key, 2)
+            ids = upload_ids(b["sparse"], dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kern, rows, mask = adm.observe_and_admit(kern, ids, k, aspec,
+                                                     engine="kernel")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            xla, rx, mx = adm.observe_and_admit(xla, ids, k, aspec,
+                                                engine="xla")
+            if not (torch.equal(signed_view(kern.table),
+                                signed_view(xla.table))
+                    and torch.equal(rows, rx) and torch.equal(mask, mx)):
+                fail(f"recsys (a) step {step}: observe_and_admit 'kernel' "
+                     f"differs from 'xla' ({int((mask != mx).sum())} "
+                     f"decisions)")
+            admitted.append(int(mask.sum()))
+            distinct.append(int(np.unique(b["sparse"]).size))
+            stream.append({"dense": torch.from_numpy(b["dense"]).to(dev),
+                           "sparse": rows.reshape(REC_BATCH, -1),
+                           "label": torch.from_numpy(b["label"]).to(dev)})
+    finally:
+        pf.close()
+    res = {"ids_a_step": REC_BATCH * 26, "distinct_a_step": distinct,
+           "admitted_a_step": admitted,
+           "observe_and_admit_ms": summary(ms)}
+    log(f"recsys (a): {REC_STEPS} steps of {REC_BATCH} x 26 ids, "
+        f"observe_and_admit 'kernel' == 'xla' at every step (tables, rows, "
+        f"masks); admitted {admitted}, distinct {distinct}; kernel engine "
+        f"ms {res['observe_and_admit_ms']}")
+    return stream, kern, res
+
+
+def dlrm_train(dev, cfg, stream):
+    """(b): dlrm-mlperf's widths on 26 admission-gated tables, trained
+    through `make_train_step` on (a)'s steps: finite losses, every row no
+    admitted or fallback id looked up bit-identical to its start, the
+    peak device memory below PEAK_LIMIT.  Returns (params, report, a
+    drive of one more train step on the last batch, for phase 12)."""
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import loop, optimizer
+    specs = rs.dlrm_specs(cfg)
+    res = {"peak_before_bytes": torch.cuda.max_memory_allocated()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mp.init_tree(specs, SEED, dev)
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    start = {k: v.clone() for k, v in params["tables"].items()}
+    touched = {k: torch.zeros(v.shape[0], dtype=torch.bool, device=dev)
+               for k, v in params["tables"].items()}
+    init, step = loop.make_train_step(
+        lambda p, b, r: rs.dlrm_loss(p, b, cfg),
+        optimizer.OptimizerConfig(peak_lr=2e-3, warmup_steps=2,
+                                  decay_steps=REC_STEPS))
+    state = init(params, np.asarray([SEED, 2], np.uint32))
+    losses, ms = [], []
+    for b in stream:
+        for i in range(cfg.n_sparse):
+            touched[f"t{i}"][b["sparse"][:, i].long()] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        fail(f"recsys (b): non-finite DLRM loss {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= PEAK_LIMIT:
+        fail(f"recsys (b): peak device memory {peak / 2**30:.2f} GiB")
+    moved = bad = 0
+    for k, t in state.params["tables"].items():
+        diff = (t.view(torch.int32) != start[k].view(torch.int32)).any(dim=1)
+        bad += int((diff & ~touched[k]).sum())
+        moved += int(diff.sum())
+    if bad:
+        fail(f"recsys (b): {bad} table rows no id touched have changed")
+    res.update({
+        "table_bytes": mp.param_bytes(specs["tables"]),
+        "dense_params": mp.param_count({k: v for k, v in specs.items()
+                                        if k != "tables"}),
+        "losses": losses, "train_step_ms": summary(ms),
+        "peak_bytes": peak, "rows_touched": sum(
+            int(v.sum()) for v in touched.values()), "rows_moved": moved})
+    log(f"recsys (b): DLRM {res['dense_params']} dense parameters, tables "
+        f"{res['table_bytes']} B, init {res['init_s']:.2f} s; losses "
+        f"{[round(x, 5) for x in losses]}; train step ms "
+        f"{res['train_step_ms']}; peak {peak / 2**30:.2f} GiB; rows touched "
+        f"{res['rows_touched']}, moved {moved}, untouched rows bit-identical")
+    last = stream[-1]
+
+    def drive():
+        nonlocal state
+        state, _ = step(state, last)
+    return state.params, res, drive
+
+
+def twin_runs(dev, specs, loss_fn, fwd, batches, key):
+    """(forward, losses, params) of TWIN_STEPS train steps from the same
+    weights and batches on the card and on the CPU."""
+    from repro_torch import convert
+    from repro_torch.models import params as mp
+    from repro_torch.train import loop, optimizer
+    p0 = convert.params_to_numpy(mp.init_tree(specs, SEED, "cpu"))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        params = convert.params_from_numpy(p0, d)
+        tb = [to_dev(b, d) for b in batches]
+        forward = fwd(params, tb[0])
+        init, step = loop.make_train_step(
+            lambda p, b, r: loss_fn(p, b),
+            optimizer.OptimizerConfig(peak_lr=2e-3, warmup_steps=2,
+                                      decay_steps=TWIN_STEPS))
+        state = init(params, key)
+        losses = []
+        for b in tb:
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        runs.append((forward, torch.stack(losses), state.params))
+    (fc, lc, pc), (fh, lh, ph) = runs
+    res = {"forward": rel_err(fc, fh), "loss": rel_err(lc, lh),
+           "params": tree_rel_err(pc, ph),
+           "losses": [float(x) for x in lc]}
+    if not (bool(torch.isfinite(fc).all()) and res["forward"] <= FWD_TOL
+            and res["loss"] <= FWD_TOL and res["params"] <= STEP_TOL):
+        fail(f"recsys card against CPU: {res}")
+    return res
+
+
+def dlrm_twin(dev, cfg, aspec) -> dict:
+    """(b), card against CPU: full MLP widths at batch TWIN_BATCH, the
+    tables cut to TWIN_ROWS + 1,024 rows; the admission decided on the
+    card (kernels) and on the CPU (plain engine), rows equal."""
+    import dataclasses
+    from repro_torch.core import CMLS16, SketchSpec, prng
+    from repro_torch.core import admission as adm
+    from repro_torch.core import sketch as sk
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import recsys as rs
+    tspec = adm.AdmissionSpec(threshold=aspec.threshold,
+                              n_fallback=aspec.n_fallback,
+                              table_rows=TWIN_ROWS)
+    tcfg = dataclasses.replace(
+        cfg, table_sizes=(tspec.n_fallback + tspec.table_rows,) * 26)
+    spec = SketchSpec.from_memory(BUDGET, depth=2, counter=CMLS16)
+    card, host = sk.init(spec, dev), sk.init(spec, "cpu")
+    key = np.asarray([SEED, 24], np.uint32)
+    batches = []
+    for s in range(TWIN_STEPS):
+        b = recsys_stream.dlrm_batch(s, 0, 1, global_batch=TWIN_BATCH,
+                                     table_sizes=rs.criteo_tables(),
+                                     seed=SEED)
+        key, k = prng.split(key, 2)
+        card, rows, _ = adm.observe_and_admit(card, upload_ids(b["sparse"],
+                                                               dev), k, tspec)
+        host, rh, _ = adm.observe_and_admit(host, upload_ids(b["sparse"],
+                                                             "cpu"), k, tspec)
+        if not torch.equal(rows.cpu(), rh):
+            fail("recsys (b) twin: admitted rows differ card / CPU")
+        batches.append(dict(b, sparse=rh.reshape(TWIN_BATCH, -1).numpy()))
+    res = twin_runs(dev, rs.dlrm_specs(tcfg),
+                    lambda p, b: rs.dlrm_loss(p, b, tcfg),
+                    lambda p, b: rs.dlrm_apply(p, b, tcfg), batches,
+                    np.asarray([SEED, 2], np.uint32))
+    log(f"recsys (b) card against CPU (batch {TWIN_BATCH}, "
+        f"{TWIN_ROWS + tspec.n_fallback}-row tables, {TWIN_STEPS} steps): "
+        f"logits {res['forward']:.3e}, losses {res['loss']:.3e}, params "
+        f"{res['params']:.3e} (normwise relative; tolerance {FWD_TOL} / "
+        f"{STEP_TOL})")
+    return res
+
+
+def compact(table: torch.Tensor, idx: torch.Tensor):
+    """(the rows `idx` reads, as a CPU table; idx into it, on the CPU)."""
+    uniq, inv = torch.unique(idx.long(), return_inverse=True)
+    return table[uniq].cpu(), inv.cpu()
+
+
+def serving_check(dev, cfg, params, sketch, aspec):
+    """(c): `admit` then `dlrm_apply` at serve_p99 and serve_bulk (p50 /
+    p95 over SERVE_CALLS calls, host clock to synchronize), then
+    `dlrm_score_candidates` over N_CANDIDATES; outputs finite, a
+    512-row and a CAND_SLICE-candidate slice held against the CPU (the
+    rows they read gathered into CPU tables).  Returns (report, {cell:
+    one call's drive}, for phase 12)."""
+    import dataclasses
+    from repro_torch.core import admission as adm
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import recsys as rs
+    res, drives = {}, {}
+    dense_cpu = {k: {n: v.cpu() for n, v in params[k].items()}
+                 for k in ("bot", "top")}
+    keep = None
+    with torch.no_grad():
+        for cell, n in SERVE_CELLS:
+            b = recsys_stream.dlrm_batch(10_000 + n, 0, 1, global_batch=n,
+                                         table_sizes=rs.criteo_tables(),
+                                         seed=SEED)
+            ids, dense = upload_ids(b["sparse"], dev), torch.from_numpy(
+                b["dense"]).to(dev)
+
+            def call(ids=ids, dense=dense, n=n):
+                rows, _ = adm.admit(sketch, ids, aspec)
+                sparse = rows.reshape(n, -1)
+                return sparse, rs.dlrm_apply(
+                    params, {"dense": dense, "sparse": sparse}, cfg)
+
+            drives[cell] = torch.no_grad()(call)
+            call()
+            ms = []
+            for _ in range(SERVE_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sparse, out = call()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if out.shape != (n,) or not bool(torch.isfinite(out).all()):
+                fail(f"recsys (c) {cell}: logits not finite or misshapen")
+            res[cell] = {"batch": n, "p50_ms": float(np.percentile(ms, 50)),
+                         "p95_ms": float(np.percentile(ms, 95)),
+                         "rows_a_s": n / (np.median(ms) / 1e3)}
+            if keep is None:
+                keep = (sparse, dense, out)
+        sparse, dense, out = keep
+        tables = {}
+        sparse_cpu = torch.empty(sparse.shape, dtype=torch.int64)
+        for i in range(cfg.n_sparse):
+            tables[f"t{i}"], sparse_cpu[:, i] = compact(
+                params["tables"][f"t{i}"], sparse[:, i])
+        host = rs.dlrm_apply({"tables": tables, **dense_cpu},
+                             {"dense": dense.cpu(), "sparse": sparse_cpu},
+                             cfg)
+        res["serve_p99_card_vs_cpu"] = rel_err(out, host)
+
+        rng = np.random.default_rng(SEED + 14)
+        cand = torch.from_numpy(rng.integers(
+            0, rs.MAX_IND_RANGE, N_CANDIDATES)).to(dev)
+        ctx = {"dense": dense[:1], "sparse": sparse[:1]}
+        rs.dlrm_score_candidates(params, ctx, cand, cfg)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = rs.dlrm_score_candidates(params, ctx, cand, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if scores.shape != (N_CANDIDATES,) or not bool(
+                torch.isfinite(scores).all()):
+            fail("recsys (c) retrieval_cand: scores not finite or misshapen")
+        res["retrieval_cand"] = {"candidates": N_CANDIDATES,
+                                 "ms": summary(ms)}
+        cand_rows = cand[:CAND_SLICE] % cfg.table_sizes[0]
+        tables = {}
+        ctx_cpu = torch.zeros((1, cfg.n_sparse), dtype=torch.int64)
+        for i in range(cfg.n_sparse):
+            idx = cand_rows if i == 0 else sparse[:1, i]
+            tables[f"t{i}"], inv = compact(params["tables"][f"t{i}"], idx)
+            if i == 0:
+                cand_cpu = inv
+        ccfg = dataclasses.replace(cfg, table_sizes=(
+            tables["t0"].shape[0],) + cfg.table_sizes[1:])
+        host = rs.dlrm_score_candidates(
+            {"tables": tables, **dense_cpu},
+            {"dense": dense[:1].cpu(), "sparse": ctx_cpu}, cand_cpu, ccfg)
+        res["retrieval_card_vs_cpu"] = rel_err(scores[:CAND_SLICE], host)
+    if max(res["serve_p99_card_vs_cpu"],
+           res["retrieval_card_vs_cpu"]) > FWD_TOL:
+        fail(f"recsys (c): card against CPU {res}")
+    log(f"recsys (c): admit + dlrm_apply {res['serve_p99']} / "
+        f"{res['serve_bulk']}; dlrm_score_candidates over {N_CANDIDATES} "
+        f"ms {res['retrieval_cand']['ms']}; card against CPU: 512 rows "
+        f"{res['serve_p99_card_vs_cpu']:.3e}, {CAND_SLICE} candidates "
+        f"{res['retrieval_card_vs_cpu']:.3e}")
+    return res, drives
+
+
+def twotower_check(dev):
+    """(d): two-tower at its full widths (5,000,192 + 1,000,448 rows of
+    256 floats, towers 1024-512-256): TT_STEPS train steps at TT_BATCH
+    with `item_logq` = log(estimate / events counted) of a CMLS16 sketch
+    counting the item_id stream (kernels 5 and 1), then
+    `twotower_score_candidates` over N_CANDIDATES; a slice of the scores
+    and a small model's TWIN_STEPS steps held against the CPU.  Returns
+    (report, a drive of one more train step, for phase 12)."""
+    import dataclasses
+    from repro_torch.configs import two_tower
+    from repro_torch.core import CMLS16, SketchSpec, prng
+    from repro_torch.core import sketch as sk
+    from repro_torch.data import recsys_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import loop, optimizer
+    c = two_tower.CFG
+    specs = rs.twotower_specs(c)
+    res = {"table_bytes": mp.param_bytes({k: specs[k] for k in (
+        "user_table", "item_table")})}
+    torch.cuda.reset_peak_memory_stats()
+    params = mp.init_tree(specs, SEED, dev)
+    sketch = sk.init(SketchSpec.from_memory(BUDGET, depth=2, counter=CMLS16),
+                     dev)
+    init, step = loop.make_train_step(
+        lambda p, b, r: rs.twotower_loss(p, b, c),
+        optimizer.OptimizerConfig(peak_lr=2e-3, warmup_steps=2,
+                                  decay_steps=TT_STEPS))
+    state = init(params, np.asarray([SEED, 3], np.uint32))
+    key = np.asarray([SEED, 15], np.uint32)
+    items, losses, ms = [], [], []
+    for s in range(TT_STEPS):
+        b = recsys_stream.twotower_batch(s, 0, 1, global_batch=TT_BATCH,
+                                         n_users=c.n_users,
+                                         n_items=c.n_items, seed=SEED)
+        items.append(b["item_id"])
+        ids = upload_ids(b["item_id"], dev)
+        key, k = prng.split(key, 2)
+        sketch = ops.update_chunked(sketch, ids, k)
+        logq = torch.log(ops.query(sketch, ids) / (TT_BATCH * (s + 1)))
+        batch = dict(to_dev({k_: b[k_] for k_ in ("user_feats",
+                                                  "item_feats")}, dev),
+                     item_logq=logq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        fail(f"recsys (d): non-finite two-tower loss {losses}")
+    # the logQ the sketch supplied tracks the exact item frequencies
+    all_items = np.concatenate(items)
+    uniq, counts = np.unique(all_items, return_counts=True)
+    sel = counts >= 20
+    est = ops.query(sketch, upload_ids(uniq[sel], dev)).cpu().numpy()
+    res["logq_mean_abs_err"] = float(np.abs(
+        np.log(est / all_items.size)
+        - np.log(counts[sel] / all_items.size)).mean())
+    if not res["logq_mean_abs_err"] < 0.15:
+        fail(f"recsys (d): sketch logQ off by {res['logq_mean_abs_err']}")
+    res.update({"losses": losses, "train_step_ms": summary(ms),
+                "peak_bytes": torch.cuda.max_memory_allocated()})
+    params = state.params
+    rng = np.random.default_rng(SEED + 15)
+    cand = torch.from_numpy(rng.integers(
+        0, c.n_items, (N_CANDIDATES, c.n_item_feats)).astype(np.int32)
+        ).to(dev)
+    query = {"user_feats": batch["user_feats"][:1]}
+    with torch.no_grad():
+        rs.twotower_score_candidates(params, query, cand, c)
+        sms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = rs.twotower_score_candidates(params, query, cand, c)
+            torch.cuda.synchronize()
+            sms.append((time.perf_counter() - t0) * 1e3)
+        if scores.shape != (1, N_CANDIDATES) or not bool(
+                torch.isfinite(scores).all()):
+            fail("recsys (d): candidate scores not finite or misshapen")
+        item_t, cand_cpu = compact(params["item_table"],
+                                   cand[:CAND_SLICE].reshape(-1))
+        user_t, user_cpu = compact(params["user_table"],
+                                   query["user_feats"].reshape(-1))
+        towers = {k: {n: v.cpu() for n, v in params[k].items()}
+                  for k in ("user_tower", "item_tower")}
+        host = rs.twotower_score_candidates(
+            {"user_table": user_t, "item_table": item_t, **towers},
+            {"user_feats": user_cpu.reshape(1, -1)},
+            cand_cpu.reshape(CAND_SLICE, -1), c)
+    res["retrieval_cand"] = {"candidates": N_CANDIDATES, "ms": summary(sms)}
+    res["retrieval_card_vs_cpu"] = rel_err(scores[:, :CAND_SLICE], host)
+    if res["retrieval_card_vs_cpu"] > FWD_TOL:
+        fail(f"recsys (d): scores card against CPU {res}")
+    del params, scores, cand
+
+    def drive():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    small = dataclasses.replace(c, n_users=TWIN_ROWS, n_items=TWIN_ROWS)
+    batches = []
+    for s in range(TWIN_STEPS):
+        b = recsys_stream.twotower_batch(s, 0, 1, global_batch=TWIN_BATCH,
+                                         n_users=TWIN_ROWS,
+                                         n_items=TWIN_ROWS, seed=SEED)
+        b["item_logq"] = np.log((b["item_id"] % 97 + 1) / 1000.0).astype(
+            np.float32)
+        batches.append(b)
+    res["twin"] = twin_runs(
+        dev, rs.twotower_specs(small),
+        lambda p, b: rs.twotower_loss(p, b, small),
+        lambda p, b: torch.cat(rs.twotower_embed(p, b, small), dim=1),
+        batches, np.asarray([SEED, 3], np.uint32))
+    log(f"recsys (d): two-tower tables {res['table_bytes']} B; losses "
+        f"{[round(x, 4) for x in losses]}; train step ms "
+        f"{res['train_step_ms']}; peak {res['peak_bytes'] / 2**30:.2f} GiB; "
+        f"sketch logQ mean abs err {res['logq_mean_abs_err']:.4f}; "
+        f"twotower_score_candidates over {N_CANDIDATES} ms "
+        f"{res['retrieval_cand']['ms']}; card against CPU: "
+        f"{CAND_SLICE} candidates {res['retrieval_card_vs_cpu']:.3e}, "
+        f"{TWIN_ROWS}-row twin {res['twin']}")
+    return res, drive
+
+
+def recsys_example_check() -> dict:
+    """(e): `recsys_admission_torch.main` at its defaults on the card and
+    with --device cpu from the same `params0`: the counts and table lines
+    equal, the final BCEs within BCE_TOL."""
+    import contextlib
+    import io
+    import recsys_admission_torch as ex
+    from repro_torch import convert
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    p0 = convert.params_to_numpy(mp.init_tree(rs.dlrm_specs(ex.CFG), SEED,
+                                              "cpu"))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        card = ex.main([], params0=p0)
+    t_card = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = ex.main(["--device", "cpu"], params0=p0)
+    for line in out.getvalue().splitlines():
+        log(f"  recsys_admission_torch: {line}")
+    diff = {p: abs(card["bce"][p] - host["bce"][p]) for p in ex.POLICIES}
+    if not (card["counts"] == host["counts"]
+            and card["table_line"] == host["table_line"]
+            and max(diff.values()) <= BCE_TOL):
+        fail(f"recsys (e): the example's card numbers differ from the "
+             f"CPU's: {card['bce']} / {host['bce']}, {card['counts']} / "
+             f"{host['counts']}")
+    log(f"recsys (e): the example card == CPU (counts, table line), BCE "
+        f"card {card['bce']} against CPU {host['bce']}")
+    return {"bce": card["bce"], "bce_cpu": host["bce"], "bce_diff": diff,
+            "counts": card["counts"], "card_seconds": t_card}
+
+
+def recsys_phase(dev) -> tuple:
+    """Phase 14: the sketch-gated recommender path at dlrm-mlperf's and
+    two-tower's full widths, (a)-(e).  Returns (kernel launches, the
+    numbers it reports, {name: drive} of one DLRM train step, one
+    serve_p99 and one serve_bulk call and one two-tower train step for
+    phase 12's profiles)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.core import admission as adm
+    from repro_torch.kernels import sketch as ksk
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    aspec = adm.AdmissionSpec()
+    cfg = dataclasses.replace(
+        dlrm_mlperf.CFG,
+        table_sizes=(aspec.n_fallback + aspec.table_rows,) * 26)
+    res = {}
+    res["live_before_bytes"] = torch.cuda.memory_allocated()
+    stream, sketch, res["admission"] = admission_stream(dev, aspec)
+    torch.cuda.synchronize()
+    res["admission"]["launches"] = {k: v for k, v in
+                                    ksk.kernel_launches().items() if v}
+    log(f"recsys (a) launches: {res['admission']['launches']} (kernels 5 "
+        f"and 1 once a step)")
+    params, res["train"], train_drive = dlrm_train(dev, cfg, stream)
+    res["serve"], drives = serving_check(dev, cfg, params, sketch, aspec)
+    drives["dlrm_train_step"] = train_drive
+    del params, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["dlrm_twin"] = dlrm_twin(dev, cfg, aspec)
+    res["two_tower"], drives["twotower_train_step"] = twotower_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["example"] = recsys_example_check()
+    torch.cuda.synchronize()
+    launches = dict(ksk.kernel_launches())
+    if not (launches["fused_update"] and launches["fused_query"]):
+        fail(f"recsys phase: kernels 5 and 1 not both launched {launches}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"recsys phase: {res['seconds']:.1f} s; launches {launches}")
+    return launches, res, drives
+
 
 def main(device: str = "cuda") -> None:
     if not torch.cuda.is_available():
@@ -3671,6 +4256,9 @@ def main(device: str = "cuda") -> None:
     # ---- 13. the repair, the paper's path, sharded at world size 1 --------
     paper_launches, paper_report = paper_phase(dev)
 
+    # ---- 14. the sketch-gated recommender path -----------------------------
+    rec_launches, rec_report, rec_drives = recsys_phase(dev)
+
     # ---- 12. profiles -------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
     # slower (the append wrappers' host time below, before and after), so
@@ -3725,11 +4313,24 @@ def main(device: str = "cuda") -> None:
     log(f"kernel 7 alone on the decayed {ALG_HISTORY + 1}-bucket CMLS16 "
         f"leaf, {PROBES} probes: "
         f"{alg_report['decayed_query_kernel_alone_ms']:.5f} ms")
+    rec_report["profiles"] = {}
+    for what, drive in rec_drives.items():
+        prof = profile_epoch(drive)
+        rec_report["profiles"][what] = prof
+        log(f"one recsys {what} under torch.profiler: wall "
+            f"{prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}, runtime calls "
+            f"{prof['runtime_calls']}; device top "
+            f"{[(r['name'][:48], round(r['ms'], 3), r['count']) for r in prof['device_top'][:6]]}")
+    del rec_drives
     append_host["after_profiler"] = append_host_us(dev, ring, append_calls)
     log("append wrapper host time by part after the profiler sessions, us "
         f"per call: {append_host['after_profiler']}")
     del svc, wsvc, tiered_svcs
     peak = max(tier_report["peak_device_bytes_before"],
+               rec_report["train"]["peak_before_bytes"],
+               rec_report["train"]["peak_bytes"],
                torch.cuda.max_memory_allocated())
     log(f"peak device memory {peak / 2**30:.2f} GiB")
 
@@ -3755,7 +4356,8 @@ def main(device: str = "cuda") -> None:
                     + flat_launches[name] + sync_launches[name]
                     + flush_launches[name] + read_launches[name]
                     + adm_launches[name] + tier_launches[name]
-                    + alg_launches[name] + paper_launches[name])
+                    + alg_launches[name] + paper_launches[name]
+                    + rec_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -3765,13 +4367,13 @@ def main(device: str = "cuda") -> None:
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
             f"flushes / sync-free reads / admission and snapshots / "
-            f"tiering / algebra and probe / paper path "
+            f"tiering / algebra and probe / paper path / recsys path "
             f"{main_launches[name]} / "
             f"{win_launches[name]} / {flat_launches[name]} / "
             f"{sync_launches[name]} / {flush_launches[name]} / "
             f"{read_launches[name]} / {adm_launches[name]} / "
             f"{tier_launches[name]} / {alg_launches[name]} / "
-            f"{paper_launches[name]}")
+            f"{paper_launches[name]} / {rec_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3788,7 +4390,8 @@ def main(device: str = "cuda") -> None:
         "append_host_us": append_host},
         "profile_epoch": profile, "window_path": e2e2,
         "admission": adm_report, "tiering": tier_report,
-        "algebra": alg_report, "paper": paper_report}), flush=True)
+        "algebra": alg_report, "paper": paper_report,
+        "recsys": rec_report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

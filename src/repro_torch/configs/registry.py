@@ -5,9 +5,10 @@ Each config module registers an `Arch` with:
   * `smoke_cfg`  -- a reduced same-family config for CPU runs;
   * `shapes`     -- the family's input-shape cells.
 
-The port registers the paper's own sketch configuration
-(`paper_sketch`); the model configurations join `_MODULES` as they are
-ported.  The shape tables are the reference's, cell for cell.
+The port registers the recommender configurations (`two_tower`,
+`dlrm_mlperf`) and the paper's own sketch configuration
+(`paper_sketch`); the other model configurations join `_MODULES` as
+they are ported.  The shape tables are the reference's, cell for cell.
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ def register(arch: Arch) -> Arch:
     return arch
 
 
-_MODULES = ["paper_sketch"]
+_MODULES = ["two_tower", "dlrm_mlperf", "paper_sketch"]
 
 
 def load_all() -> dict:

@@ -17,6 +17,14 @@ leaves in numpy: a `Sketch` as its storage table, a `WindowedSketch` as
 "cursor"} (its gamma and geometry are given beside them).  A structure
 the JAX package built then goes on in the port, and back, with the same
 answers.
+
+Model weights and training state ride as nested dicts of numpy arrays:
+`params_from_numpy(tree, device)` / `params_to_numpy(params)` for a
+parameter (or optimizer-state) tree, and `train_state_from_numpy` /
+`train_state_to_numpy` for a whole `TrainState` as {"params",
+"opt_state", "step", "rng", "extras"} (mu / nu / acc under opt_state,
+the int32 step and the raw (2,) uint32 key).  The JAX model and the
+port's then start from the same weights.
 """
 from __future__ import annotations
 
@@ -26,9 +34,11 @@ import torch
 from repro_torch.core.counters import from_numpy, to_numpy
 from repro_torch.core.device import resolve_device
 from repro_torch.core.sketch import Sketch, SketchSpec
+from repro_torch.models.params import tree_map
 from repro_torch.stream import window as w
 from repro_torch.stream.service import CountService
 from repro_torch.train import checkpoint
+from repro_torch.train.loop import TrainState
 
 
 def service_from_numpy(meta: dict, tree: dict, device=None,
@@ -101,3 +111,36 @@ def decayed_from_numpy(leaves: dict, spec: SketchSpec, gamma: float,
 def decayed_to_numpy(ds: w.DecayedSketch) -> dict:
     """{"tables", "cursor"} of a port `DecayedSketch`."""
     return {"tables": to_numpy(ds.tables), "cursor": int(ds.cursor)}
+
+
+def params_from_numpy(tree, device=None) -> dict:
+    """A nested dict of arrays as tensors (one copy each) on `device`."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: from_numpy(np.asarray(a), dev), tree)
+
+
+def params_to_numpy(params) -> dict:
+    """A nested dict of tensors as host numpy copies."""
+    return checkpoint.to_host(params)
+
+
+def train_state_from_numpy(tree: dict, device=None) -> TrainState:
+    """A port `TrainState` from {"params", "opt_state", "step", "rng"[,
+    "extras"]} of arrays (the reference state's leaves in numpy)."""
+    extras = tree.get("extras")
+    return TrainState(
+        params=params_from_numpy(tree["params"], device),
+        opt_state=params_from_numpy(tree["opt_state"], device),
+        step=torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32),
+        rng=np.asarray(tree["rng"], np.uint32).reshape(2),
+        extras=None if extras is None else params_from_numpy(extras, device))
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """{"params", "opt_state", "step", "rng", "extras"} in numpy."""
+    return {"params": params_to_numpy(state.params),
+            "opt_state": params_to_numpy(state.opt_state),
+            "step": np.asarray(int(state.step), np.int32),
+            "rng": np.asarray(state.rng, np.uint32).copy(),
+            "extras": (None if state.extras is None
+                       else params_to_numpy(state.extras))}

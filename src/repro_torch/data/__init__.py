@@ -1,2 +1,3 @@
-"""Host-side data plane of the paper's workload: the calibrated corpus
-and its n-gram event streams (numpy, no device)."""
+"""Host-side data plane (numpy, no device): the paper's calibrated corpus
+and its n-gram event streams, the recsys event streams, and the
+stateless, prefetching batch pipeline."""

@@ -1453,3 +1453,157 @@ def test_sharded_world_one_on_nccl(cuda, tmp_path):
         assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the recommender path (DLRM, two-tower, admission) card against CPU
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    """float32 matmuls in full float32 (no TF32), restored afterwards."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev[0]
+    torch.backends.cudnn.allow_tf32 = prev[1]
+    torch.set_float32_matmul_precision(prev[2])
+
+
+def _rel(card, host) -> float:
+    """Normwise relative error max |card - host| / max |host|."""
+    card = card.detach().cpu().double()
+    host = host.detach().cpu().double()
+    return float((card - host).abs().max() / host.abs().max().clamp_min(1e-30))
+
+
+def _recsys_runs(model: str, steps: int = 3):
+    """(forward, losses, params) of `steps` train steps of a smoke model
+    from the same weights and batches, on the card and on the CPU."""
+    from repro_torch import convert
+    from repro_torch.configs import dlrm_mlperf, two_tower
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import loop, optimizer
+    if model == "dlrm":
+        c = dlrm_mlperf.SMOKE
+        specs, loss = rs.dlrm_specs(c), rs.dlrm_loss
+        fwd = rs.dlrm_apply
+        batches = [recsys_stream.dlrm_batch(
+            s, 0, 1, global_batch=64, table_sizes=list(c.table_sizes))
+            for s in range(steps)]
+    else:
+        c = two_tower.SMOKE
+        specs, loss = rs.twotower_specs(c), rs.twotower_loss
+        fwd = lambda p, b, c: torch.cat(rs.twotower_embed(p, b, c), dim=1)
+        batches = []
+        for s in range(steps):
+            b = recsys_stream.twotower_batch(s, 0, 1, global_batch=64,
+                                             n_users=c.n_users,
+                                             n_items=c.n_items)
+            b["item_logq"] = np.log(
+                (b["item_id"] % 97 + 1) / 1000.0).astype(np.float32)
+            batches.append(b)
+    p0 = convert.params_to_numpy(mp.init_tree(specs, 0, "cpu"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = convert.params_from_numpy(p0, dev)
+        tb = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+              for b in batches]
+        forward = fwd(params, tb[0], c)
+        init, step = loop.make_train_step(
+            lambda p, b, r: loss(p, b, c),
+            optimizer.OptimizerConfig(peak_lr=2e-3, warmup_steps=2,
+                                      decay_steps=steps))
+        state = init(params, np.array([0, 2], np.uint32))
+        losses = []
+        for b in tb:
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        out[dev] = (forward, torch.stack(losses), state.params)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dlrm", "two_tower"])
+def test_recsys_card_equals_cpu_forward_and_three_steps(cuda, no_tf32, model):
+    """Smoke configs: the forward pass within 1e-5 and three train steps
+    (losses, every parameter) within 1e-4 of the CPU's, relative."""
+    from repro_torch.models.params import flatten
+    out = _recsys_runs(model)
+    (fc, lc, pc), (fh, lh, ph) = out["cuda"], out["cpu"]
+    assert bool(torch.isfinite(fc).all()) and _rel(fc, fh) <= 1e-5
+    assert _rel(lc, lh) <= 1e-5
+    hp = flatten(ph)
+    for k, v in flatten(pc).items():
+        assert v.device.type == "cuda" and _rel(v, hp[k]) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_observe_and_admit_kernel_equals_xla_on_26_fields(cuda):
+    """Three 26-field `dlrm_batch`es counted in one CMLS16 sketch:
+    engine "kernel" (kernels 5 and 1) equals "xla" on the card and on the
+    CPU: tables, rows and masks exact at every step."""
+    from repro_torch.core import CMLS16, SketchSpec
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import recsys as rs
+    spec = SketchSpec.from_memory(64 * 1024, depth=2, counter=CMLS16)
+    aspec = tadm.AdmissionSpec(threshold=3.0, n_fallback=32, table_rows=96)
+    kern = tsk.init(spec, device=cuda)
+    xla = tsk.init(spec, device=cuda)
+    host = tsk.init(spec, device="cpu")
+    key = np.array([0, 1], np.uint32)
+    ksk.reset_kernel_launches()
+    for step in range(3):
+        b = recsys_stream.dlrm_batch(step, 0, 1, global_batch=512,
+                                     table_sizes=rs.criteo_tables())
+        flat = torch.from_numpy(b["sparse"].reshape(-1).astype(np.int64)
+                                ).to(torch.uint32)
+        key, k = prng.split(key, 2)
+        kern, rk, ak = tadm.observe_and_admit(kern, flat.to(cuda), k, aspec,
+                                              engine="kernel")
+        xla, rx, ax = tadm.observe_and_admit(xla, flat.to(cuda), k, aspec,
+                                             engine="xla")
+        host, rh, ah = tadm.observe_and_admit(host, flat, k, aspec)
+        assert torch.equal(signed_view(kern.table), signed_view(xla.table))
+        assert torch.equal(signed_view(kern.table).cpu(),
+                           signed_view(host.table))
+        assert torch.equal(rk, rx) and torch.equal(rk.cpu(), rh)
+        assert torch.equal(ak, ax) and torch.equal(ak.cpu(), ah)
+    assert 0 < int(ak.sum()) < flat.numel()
+    launches = ksk.kernel_launches()
+    assert launches["fused_update"] == 3 and launches["fused_query"] == 3
+
+
+@pytest.mark.cuda
+def test_untouched_table_rows_exact_after_a_step(cuda):
+    """One DLRM train step on the card: every table row no id of the batch
+    looked up is bit-identical to its start; the looked-up rows moved."""
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import loop, optimizer
+    c = rs.DLRMConfig(embed_dim=16, bot_mlp=(13, 32, 16), top_mlp=(64, 1),
+                      table_sizes=(4096,) * 26)
+    params = mp.init_tree(rs.dlrm_specs(c), 0, cuda)
+    start = {k: v.clone() for k, v in params["tables"].items()}
+    b = recsys_stream.dlrm_batch(0, 0, 1, global_batch=256,
+                                 table_sizes=list(c.table_sizes))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    init, step = loop.make_train_step(lambda p, bt, r: rs.dlrm_loss(p, bt, c),
+                                      optimizer.OptimizerConfig())
+    state, m = step(init(params, np.array([0, 2], np.uint32)), batch)
+    assert bool(torch.isfinite(m["loss"]))
+    for i in range(c.n_sparse):
+        t = state.params["tables"][f"t{i}"]
+        moved = (t.view(torch.int32) != start[f"t{i}"].view(torch.int32)
+                 ).any(dim=1)
+        touched = torch.zeros(t.shape[0], dtype=torch.bool, device=cuda)
+        touched[batch["sparse"][:, i].long()] = True
+        assert not bool((moved & ~touched).any()), i
+        assert bool(moved[touched].all()), i

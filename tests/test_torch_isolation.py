@@ -36,7 +36,7 @@ print(json.dumps({{"modules": mods, "bad": bad}}))
 
 def test_port_and_chip_smoke_import_no_jax_or_repro():
     examples = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
-    assert len(examples) == 3
+    assert len(examples) == 4
     code = _PROBE.format(src=str(SRC), smoke=str(ROOT / "chip_smoke.py"),
                          examples=examples)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -57,7 +57,12 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.core.topk", "repro_torch.data.corpus",
               "repro_torch.data.ngrams", "repro_torch.configs.registry",
               "repro_torch.configs.paper_sketch",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.models.params",
+              "repro_torch.models.layers", "repro_torch.models.recsys",
+              "repro_torch.data.recsys_stream", "repro_torch.data.pipeline",
+              "repro_torch.train.optimizer", "repro_torch.train.loop",
+              "repro_torch.configs.dlrm_mlperf",
+              "repro_torch.configs.two_tower"):
         assert m in res["modules"]
 
 
@@ -86,6 +91,20 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         serve_counts.main(["--tenants", "1", "--epochs", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         CountService(spec, tenants=["a"], tier=TierSpec(max_hot_tenants=1))
+
+
+def test_init_tree_without_device_raises_without_cuda(no_cuda):
+    """`models.params.init_tree` makes its tensors on CUDA unless asked
+    for the CPU: without a GPU, no device raises."""
+    from repro_torch.models import params, recsys
+    specs = recsys.dlrm_specs(recsys.DLRMConfig(
+        embed_dim=4, bot_mlp=(13, 4), top_mlp=(4, 1), table_sizes=(8,) * 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params.init_tree(specs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params.init_tree(specs, 0, "cuda")
+    tree = params.init_tree(specs, 0, "cpu")
+    assert tree["tables"]["t0"].device.type == "cpu"
 
 
 def test_sketch_init_without_device_raises_without_cuda(no_cuda):
@@ -130,9 +149,11 @@ def test_examples_and_nccl_group_raise_without_cuda(no_cuda):
     from repro_torch.launch import mesh
     sys.path.insert(0, str(ROOT / "examples"))
     import quickstart_torch
+    import recsys_admission_torch
     import streaming_pmi_torch
     import trending_items_torch
-    for mod in (quickstart_torch, streaming_pmi_torch, trending_items_torch):
+    for mod in (quickstart_torch, streaming_pmi_torch, trending_items_torch,
+                recsys_admission_torch):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main([])
     with pytest.raises(RuntimeError, match="NCCL backend needs CUDA"):

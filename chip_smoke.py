@@ -186,6 +186,46 @@ exit, no result line) if anything disagrees:
                 the sketch's logQ (kernels 5 and 1), 1,000,000 candidates
                 scored, slices and a small twin card against CPU; (e)
                 `examples/recsys_admission_torch.py` card == CPU;
+ 15. LM scaffold -- before phase 14 (whose drives keep 13 GiB of DLRM
+                tables alive for phase 12), TF32 off, no kernel on its path
+                (its launch counts are read and must stay 0 or more): (a)
+                qwen2-0.5b at its full config (494,032,768 float32
+                parameters, bf16 activations): 5 AdamW steps through
+                `make_train_step` at train_4k's sequence of 4,096, batch
+                cut from 256 to 4 (peak below 60 GiB with what earlier
+                phases leave live), the
+                500k-token Zipf corpus (finite, falling losses; step ms,
+                tokens/s, model FLOP/s, peak); prefill 8 x 2,048 then 64
+                greedy decodes, the prefill's and every decode's logits
+                within 5e-2 of one `apply` over the same tokens
+                (tests/test_models_smoke.py's bf16 tolerance); prefill
+                2 x 30,720 into decode_32k's 32,768-slot cache (batch cut
+                from 128) with chunk_q 2,048, then 16 decodes; (b)
+                phi3-mini (2 layers), gemma2-27b (2: local and global),
+                llama4-scout (4: three chunked, one global; 40.5 GiB of
+                float32 weights) and deepseek-v2-lite (the dense prefix
+                and 2) at their published widths, each alone: prefill
+                2 x 512, 16 decodes, checked against `apply` as in (a);
+                the two MoE configs are timed as published and checked
+                in float32 with a capacity no token overflows (a decode's
+                2 tokens and `apply`'s 1,056 get different capacities,
+                and a bf16 rounding can flip a routing decision); (c) the
+                seven smoke configs from the same float32 weights card
+                against CPU: logits, loss, gradients, the prefill cache,
+                four decodes, SASRec / BERT4Rec encodings, losses,
+                gradients and `topk_over_catalog` ids (1e-5, gradients
+                1e-4, ids exact); (d) SASRec and BERT4Rec at their full
+                configs (1,000,000 items): 3 train steps at batch 32,768
+                and 8,192 (train_batch's 65,536 cut, see SEQREC_BATCH),
+                `topk_over_catalog` at serve_p99 (512 users, k 100) equal
+                to a top-k of the whole catalog's scores,
+                `score_candidates` over 1,000,000 candidates; (e)
+                `launch/train.main --preset 100m --steps 30 --batch 32
+                --seq 1024 --sketch` (steps cut from 300), its sketch
+                against a CPU `update_batched` of the same batches (at
+                most 1e-4 of cells one state apart), `launch/serve.main
+                --arch qwen2-0.5b`, `examples/train_lm_torch.py --preset
+                25m --steps 20 --sketch`;
  12. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
@@ -198,7 +238,10 @@ exit, no result line) if anything disagrees:
                 one epoch of each tiered regime (hot-only, all, churn)
                 and one tiered windowed epoch (synchronizes, copies,
                 cudaLaunchKernel), kernel 7 alone on phase 11's decayed
-                leaf, then the append wrappers' host time again.
+                leaf, phase 14's recsys drives, a qwen2-0.5b train step
+                (4 x 4,096), a prefill (8 x 2,048) and a decode step on
+                its cache (phase 15's path, built anew here), then the
+                append wrappers' host time again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -3843,6 +3886,562 @@ def recsys_phase(dev) -> tuple:
     return launches, res, drives
 
 
+# ---- phase 15 of slice 12: the LM and sequential-recommender scaffold -------
+
+LM_STEPS = 5               # qwen2-0.5b train steps at train_4k's sequence
+LM_BATCH = 4               # cut from train_4k's 256 (the peak, below)
+LM_SEQ = 4_096             # LM_SHAPES["train_4k"]
+LM_LR = 1e-3               # AdamW's peak, no warmup
+LM_PEAK_LIMIT = 60 * 2**30  # qwen2-0.5b training's device memory
+SERVE_BATCH = 8            # prefill 2,048 then SERVE_GEN decodes
+SERVE_PROMPT = 2_048
+SERVE_GEN = 64
+LONG_BATCH = 2             # decode_32k's cache length, batch cut from 128
+LONG_LEN = 32_768          # LM_SHAPES["decode_32k"]
+LONG_CHUNK_Q = 2_048       # the prefill's query chunk (launch/cells.py:164)
+LONG_PROMPT = LONG_LEN - LONG_CHUNK_Q
+LONG_GEN = 16
+# the other four LM configs at their published widths, depth cut to one
+# pattern period (after deepseek's dense prefix)
+OTHER_LMS = (("phi3-mini-3.8b", 2), ("gemma2-27b", 2),
+             ("llama4-scout-17b-a16e", 4), ("deepseek-v2-lite-16b", 3))
+OTHER_BATCH = 2
+OTHER_PROMPT = 512
+OTHER_GEN = 16
+DECODE_TOL = 5e-2          # decode vs apply, bf16 (tests/test_models_smoke.py)
+E2E_TRAIN = (30, 32, 1_024)  # launch.train's steps (cut from 300), batch, seq
+SEQREC_STEPS = 3
+# train_batch is 65,536: SASRec's sampled softmax holds (B, B + 512)
+# float32 logits (17.3 GB at 65,536; 68.3 GiB peak alone), BERT4Rec's
+# encoder (B, 2, 200, 200) float32 scores a block (21 GB at 65,536)
+SEQREC_BATCH = {"sasrec": 32_768, "bert4rec": 8_192}
+SEQREC_USERS = 512         # RECSYS_SHAPES["serve_p99"], k = 100
+SEQREC_K = 100
+TWIN_PROMPT = 12           # smoke twins: prefill 12, decode to 16
+TWIN_LEN = 16
+# card against CPU at the smoke configs, float32 with TF32 off, normwise
+# relative: the CPU tests' tolerances (tests/test_torch_lm.py)
+LM_FWD_TOL = 1e-5
+LM_GRAD_TOL = 1e-4
+SKETCH_APART = 1e-4        # CMLS16 cells one state apart, at most this share
+
+
+def lm_peak(what: str, res: dict, base: int) -> None:
+    torch.cuda.synchronize()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["peak_above_live_bytes"] = res["peak_bytes"] - base
+    log(f"lm {what}: peak {res['peak_bytes'] / 2**30:.2f} GiB "
+        f"({res['peak_above_live_bytes'] / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB live before)")
+
+
+def fresh_peak() -> int:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def serve_and_check(dev, params, cfg, batch: int, prompt_len: int,
+                    gen: int, seed: int, max_len: int | None = None,
+                    check: bool = True) -> dict:
+    """Prefill a (batch, prompt_len) prompt into a cache of `max_len`
+    slots (prompt_len + gen by default), then `gen` greedy decodes,
+    timed; with `check`, the prefill's and every decode's logits against
+    one `apply` over the same tokens (DECODE_TOL, as
+    tests/test_models_smoke.py holds them in bf16)."""
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tf
+    max_len = max_len or prompt_len + gen
+    prompt = prng.randint((SEED, seed), (batch, prompt_len), 0,
+                          cfg.vocab_size, device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(params, prompt, cfg, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs, toks = [logits], [torch.argmax(logits, -1)[:, None]]
+        pos = torch.full((), prompt_len, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            logits, cache = tf.decode_step(params, cache, toks[-1], pos, cfg)
+            outs.append(logits)
+            toks.append(torch.argmax(logits, -1)[:, None])
+            pos = pos + 1
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        res = {"prefill_ms": prefill_ms,
+               "decode_tokens_per_s": batch * gen / decode_s,
+               "decode_step_ms": decode_s / gen * 1e3}
+        got = torch.stack(outs[:gen + 1], dim=1)          # (B, gen+1, V)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"lm serve {cfg.name}: non-finite logits")
+        if check:
+            seq = torch.cat([prompt] + toks[:gen], dim=1)  # (B, P + gen)
+            full, _ = tf.apply(params, seq, cfg)
+            want = full[:, prompt_len - 1:]
+            err = (got - want).abs() - DECODE_TOL * (1 + want.abs())
+            res["decode_vs_apply_max_abs"] = float((got - want).abs().max())
+            if float(err.max()) > 0:
+                fail(f"lm serve {cfg.name}: decode logits differ from apply "
+                     f"by {res['decode_vs_apply_max_abs']}")
+            del full, want
+    return res
+
+
+def qwen_full(dev) -> dict:
+    """(a): qwen2-0.5b at its full config."""
+    import dataclasses
+    from repro_torch.configs import qwen2_05b
+    from repro_torch.data import corpus, pipeline
+    from repro_torch.models import params as mp
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop, optimizer
+    cfg = qwen2_05b.CFG
+    res = {"params": mp.param_count(tf.param_specs(cfg))}
+    base = fresh_peak()
+    params = mp.init_tree(tf.param_specs(cfg), SEED, dev)
+    tokens = corpus.generate(corpus.CorpusSpec(n_tokens=500_000))
+    src = pipeline.token_batch_source(tokens, LM_BATCH, LM_SEQ, SEED)
+    init, step = loop.make_train_step(
+        lambda p, b, r: tf.loss_fn(p, b, cfg),
+        optimizer.OptimizerConfig(peak_lr=LM_LR, warmup_steps=0,
+                                  decay_steps=LM_STEPS))
+    state = init(params, np.asarray([SEED, 15], np.uint32))
+    losses, ms = [], []
+    for s in range(LM_STEPS):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in src.batch(s, 0, 1).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"lm (a): qwen2-0.5b losses not finite and falling: {losses}")
+    step_ms = float(np.median(ms[1:]))
+    n_tok = LM_BATCH * LM_SEQ
+    res["train"] = {"batch": LM_BATCH, "seq": LM_SEQ, "losses": losses,
+                    "step_ms": ms, "step_ms_median": step_ms,
+                    "tokens_per_s": n_tok / step_ms * 1e3,
+                    "model_flops_per_step": tf.model_flops(cfg, n_tok,
+                                                           LM_SEQ)}
+    res["train"]["model_flops_per_s"] = (
+        res["train"]["model_flops_per_step"] / step_ms * 1e3)
+    lm_peak("(a) train", res["train"], base)
+    if res["train"]["peak_bytes"] >= LM_PEAK_LIMIT:
+        fail(f"lm (a): training peak {res['train']['peak_bytes']} B")
+    log(f"lm (a): qwen2-0.5b {res['params']} parameters, {LM_STEPS} steps "
+        f"of {LM_BATCH} x {LM_SEQ}: losses {[round(x, 4) for x in losses]}, "
+        f"step ms {[round(x, 1) for x in ms]} (median after the first "
+        f"{step_ms:.1f}), {res['train']['tokens_per_s']:.0f} tokens/s, "
+        f"{res['train']['model_flops_per_s'] / 1e12:.1f} model TFLOP/s")
+    params = state.params
+    del state, step, init
+    base = fresh_peak()
+    res["serve_2k"] = serve_and_check(dev, params, cfg, SERVE_BATCH,
+                                      SERVE_PROMPT, SERVE_GEN, 151)
+    lm_peak("(a) serve 2k", res["serve_2k"], base)
+    log(f"lm (a): prefill {SERVE_BATCH} x {SERVE_PROMPT} in "
+        f"{res['serve_2k']['prefill_ms']:.1f} ms, {SERVE_GEN} decodes at "
+        f"{res['serve_2k']['decode_tokens_per_s']:.0f} tokens/s "
+        f"({res['serve_2k']['decode_step_ms']:.2f} ms a step); decode == "
+        f"apply within {DECODE_TOL} (max |diff| "
+        f"{res['serve_2k']['decode_vs_apply_max_abs']:.4f})")
+    base = fresh_peak()
+    res["decode_32k"] = serve_and_check(
+        dev, params, dataclasses.replace(cfg, chunk_q=LONG_CHUNK_Q),
+        LONG_BATCH, LONG_PROMPT, LONG_GEN, 152, max_len=LONG_LEN,
+        check=False)
+    lm_peak("(a) decode 32k", res["decode_32k"], base)
+    log(f"lm (a): prefill {LONG_BATCH} x {LONG_PROMPT} (chunk_q "
+        f"{LONG_CHUNK_Q}) in {res['decode_32k']['prefill_ms']:.1f} ms, "
+        f"{LONG_GEN} decodes on the {LONG_LEN}-slot cache at "
+        f"{res['decode_32k']['decode_tokens_per_s']:.0f} tokens/s")
+    return res
+
+
+def other_lms(dev) -> dict:
+    """(b): the four other LM configs at their published widths, depth cut
+    to one pattern period; each freed before the next."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import params as mp
+    from repro_torch.models import transformer as tf
+    res = {}
+    for i, (name, layers) in enumerate(OTHER_LMS):
+        cfg = dataclasses.replace(registry.get(name).cfg, n_layers=layers)
+        base = fresh_peak()
+        t0 = time.perf_counter()
+        params = mp.init_tree(tf.param_specs(cfg), SEED, dev)
+        torch.cuda.synchronize()
+        r = {"layers": layers, "params": mp.param_count(tf.param_specs(cfg)),
+             "init_s": time.perf_counter() - t0}
+        if cfg.moe is None:
+            r.update(serve_and_check(dev, params, cfg, OTHER_BATCH,
+                                     OTHER_PROMPT, OTHER_GEN, 160 + i))
+        else:
+            # timed as published; checked in float32 with no token
+            # dropped: the capacity follows the token count, so a decode
+            # (2 tokens) and `apply` (1,056) would drop different tokens,
+            # and a bf16 rounding can flip a top-k routing decision
+            # between the two (llama4-scout: 0.078 apart in bf16)
+            r.update(serve_and_check(dev, params, cfg, OTHER_BATCH,
+                                     OTHER_PROMPT, OTHER_GEN, 160 + i,
+                                     check=False))
+            nodrop = dataclasses.replace(
+                cfg, dtype=torch.float32, moe=dataclasses.replace(
+                    cfg.moe,
+                    capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            r["decode_vs_apply_max_abs"] = serve_and_check(
+                dev, params, nodrop, OTHER_BATCH, OTHER_PROMPT, OTHER_GEN,
+                160 + i)["decode_vs_apply_max_abs"]
+        del params
+        lm_peak(f"(b) {name}", r, base)
+        res[name] = r
+        log(f"lm (b): {name} at {layers} layers ({r['params']} parameters): "
+            f"prefill {OTHER_BATCH} x {OTHER_PROMPT} in "
+            f"{r['prefill_ms']:.1f} ms, {OTHER_GEN} decodes at "
+            f"{r['decode_tokens_per_s']:.0f} tokens/s, decode == apply "
+            f"(max |diff| {r['decode_vs_apply_max_abs']:.4f})")
+    return res
+
+
+def lm_twin(dev, name: str) -> dict:
+    """(c): one LM smoke config from the same float32 weights on the card
+    and on the CPU: logits, loss, gradients, the prefill cache and four
+    decode steps."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models import params as mp
+    from repro_torch.models import transformer as tf
+    cfg = registry.get(name).smoke_cfg
+    p0 = convert.params_to_numpy(mp.init_tree(tf.param_specs(cfg), SEED,
+                                              "cpu"))
+    toks = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (2, TWIN_LEN)).astype(np.int32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        t = torch.from_numpy(toks).to(d)
+        leaves = {k: v.requires_grad_() for k, v in mp.flatten(
+            convert.params_from_numpy(p0, d)).items()}
+        loss, _ = tf.loss_fn(mp.unflatten(leaves),
+                             {"tokens": t, "targets": t.roll(-1, 1)}, cfg)
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+        params = mp.unflatten({k: v.detach() for k, v in leaves.items()})
+        with torch.no_grad():
+            logits, _ = tf.apply(params, t, cfg)
+            _, cache = tf.prefill(params, t[:, :TWIN_PROMPT], cfg, TWIN_LEN)
+            decs = []
+            for pos in range(TWIN_PROMPT, TWIN_LEN):
+                dl, cache = tf.decode_step(
+                    params, cache, t[:, pos:pos + 1],
+                    torch.tensor(pos, dtype=torch.int32), cfg)
+                decs.append(dl)
+        out.append({"logits": logits, "loss": loss.detach(),
+                    "grads": grads, "cache": mp.flatten(cache),
+                    "decode": torch.stack(decs)})
+    c, h = out
+    err = {k: rel_err(c[k], h[k]) for k in ("logits", "loss", "decode")}
+    err["grads"] = max(rel_err(v, h["grads"][k])
+                       for k, v in c["grads"].items())
+    err["cache"] = max(rel_err(v.float(), h["cache"][k].float())
+                       for k, v in c["cache"].items())
+    if (max(err["logits"], err["loss"], err["decode"], err["cache"])
+            > LM_FWD_TOL or err["grads"] > LM_GRAD_TOL):
+        fail(f"lm (c) {name}: card differs from the CPU: {err}")
+    return err
+
+
+def seqrec_twin(dev, name: str) -> dict:
+    """(c): a sequential recommender's smoke config on the card and on the
+    CPU: the encoding, the loss with one raw key, its gradients, and
+    `topk_over_catalog` (ids equal)."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    cfg = registry.get(name).smoke_cfg
+    loss_fn = rs.sasrec_loss if name == "sasrec" else rs.bert4rec_loss
+    p0 = convert.params_to_numpy(mp.init_tree(rs.sasrec_specs(cfg), SEED,
+                                              "cpu"))
+    b = recsys_stream.seq_batch(0, 0, 1, global_batch=64,
+                                n_items=cfg.n_items, seq_len=cfg.seq_len)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        leaves = {k: v.requires_grad_() for k, v in mp.flatten(
+            convert.params_from_numpy(p0, d)).items()}
+        params = mp.unflatten(leaves)
+        loss, _ = loss_fn(params, batch, cfg, np.asarray([SEED, 7],
+                                                         np.uint32))
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+        with torch.no_grad():
+            h = rs.sasrec_encode(params, batch["history"], cfg)
+            v, ids = rs.topk_over_catalog(params, h[:, -1], cfg, k=20,
+                                          chunk=64)
+        out.append({"encode": h, "loss": loss.detach(), "grads": grads,
+                    "topk": v, "ids": ids})
+    c, h = out
+    err = {k: rel_err(c[k], h[k]) for k in ("encode", "loss", "topk")}
+    err["grads"] = max(rel_err(v, h["grads"][k])
+                       for k, v in c["grads"].items())
+    if not torch.equal(c["ids"].cpu(), h["ids"]):
+        fail(f"lm (c) {name}: topk_over_catalog ids differ card / CPU")
+    if (max(err["encode"], err["loss"], err["topk"]) > LM_FWD_TOL
+            or err["grads"] > LM_GRAD_TOL):
+        fail(f"lm (c) {name}: card differs from the CPU: {err}")
+    return err
+
+
+def seqrec_full(dev, name: str) -> dict:
+    """(d): SASRec / BERT4Rec at their full configs (1,000,000 items):
+    SEQREC_STEPS train steps at SEQREC_BATCH, `topk_over_catalog` at
+    serve_p99 (its values equal to a top-k of the whole catalog's scores
+    within LM_FWD_TOL), `score_candidates` at retrieval_cand."""
+    from repro_torch.configs import registry
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import loop, optimizer
+    cfg = registry.get(name).cfg
+    loss_fn = rs.sasrec_loss if name == "sasrec" else rs.bert4rec_loss
+    bsz = SEQREC_BATCH[name]
+    base = fresh_peak()
+    params = mp.init_tree(rs.sasrec_specs(cfg), SEED, dev)
+    init, step = loop.make_train_step(
+        lambda p, b, r: loss_fn(p, b, cfg, r),
+        optimizer.OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                  decay_steps=SEQREC_STEPS))
+    state = init(params, np.asarray([SEED, 16], np.uint32))
+    losses, ms = [], []
+    for s in range(SEQREC_STEPS):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             recsys_stream.seq_batch(s, 0, 1, global_batch=bsz,
+                                     n_items=cfg.n_items,
+                                     seq_len=cfg.seq_len).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        fail(f"lm (d) {name}: non-finite losses {losses}")
+    res = {"batch": bsz, "losses": losses, "train_step_ms": ms}
+    lm_peak(f"(d) {name} train", res, base)
+    params = state.params
+    del state, step, init
+    hist = torch.from_numpy(recsys_stream.seq_batch(
+        99, 0, 1, global_batch=SEQREC_USERS, n_items=cfg.n_items,
+        seq_len=cfg.seq_len)["history"]).to(dev)
+    cand = torch.arange(cfg.n_items, dtype=torch.int32, device=dev)
+
+    def serve():
+        h = rs.sasrec_encode(params, hist, cfg)[:, -1]
+        return rs.topk_over_catalog(params, h, cfg, k=SEQREC_K)
+
+    def retrieve():
+        h = rs.sasrec_encode(params, hist[:1], cfg)[:, -1]
+        return rs.score_candidates(params, h, cand)
+
+    with torch.no_grad():
+        v, ids = serve()
+        h = rs.sasrec_encode(params, hist, cfg)[:, -1]
+        full = rs.score_candidates(params, h, cand)
+        res["topk_vs_full_catalog"] = rel_err(
+            v, torch.topk(full, SEQREC_K, dim=-1).values)
+        if res["topk_vs_full_catalog"] > LM_FWD_TOL:
+            fail(f"lm (d) {name}: topk_over_catalog values differ from the "
+                 f"whole catalog's top-k by {res['topk_vs_full_catalog']}")
+        if rel_err(full.gather(1, ids), v) > LM_FWD_TOL:
+            fail(f"lm (d) {name}: topk ids do not score their values")
+        del full
+        res["serve_p99_ms"] = summary([cuda_ms(serve, 1) for _ in range(20)])
+        scores = retrieve()
+        if scores.shape != (1, cfg.n_items):
+            fail(f"lm (d) {name}: retrieval scores {tuple(scores.shape)}")
+        res["retrieval_ms"] = summary([cuda_ms(retrieve, 1)
+                                       for _ in range(20)])
+    del params
+    log(f"lm (d): {name} {SEQREC_STEPS} steps at {bsz}: losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in ms]}; topk_over_catalog of {SEQREC_USERS} "
+        f"users (k {SEQREC_K}) ms {res['serve_p99_ms']}, == the whole "
+        f"catalog's top-k within {res['topk_vs_full_catalog']:.2e}; "
+        f"{cfg.n_items} candidates scored, ms {res['retrieval_ms']}")
+    return res
+
+
+def lm_entry_points(dev) -> dict:
+    """(e): `launch/train.main` (the reference docstring's accelerator
+    recipe, steps cut from 300 to 30) with its sketch against a CPU
+    `update_batched` of the same token batches; `launch/serve.main` at
+    its defaults; `examples/train_lm_torch.py --preset 25m --steps 20
+    --sketch`."""
+    import runpy
+    from repro_torch.core import sketch as sk
+    from repro_torch.data import corpus, pipeline
+    from repro_torch.launch import serve, train
+    res = {}
+    t0 = time.perf_counter()
+    steps, batch, seq = E2E_TRAIN
+    state, sketch = train.main(["--preset", "100m", "--steps", str(steps),
+                                "--batch", str(batch), "--seq", str(seq),
+                                "--sketch"])
+    torch.cuda.synchronize()
+    res["train_100m_s"] = time.perf_counter() - t0
+    if int(state.step) != steps:
+        fail(f"lm (e): launch.train stopped at step {int(state.step)}")
+    del state
+    # the CPU's counting of the same batches (steps 0..steps: the batch
+    # source runs one step ahead of the loop)
+    src = pipeline.token_batch_source(
+        corpus.generate(corpus.CorpusSpec(n_tokens=2_000_000)), batch, seq,
+        0)
+    host = sk.init(sketch.spec, device="cpu")
+    for s in range(steps + 1):
+        host = sk.update_batched(host, train.sketch_keys(
+            src.batch(s, 0, 1)["tokens"], "cpu"),
+            np.asarray([0, s], np.uint32))
+    cells = sk.logical_table(host.table, host.spec)
+    apart = (sk.logical_table(sketch.table, sketch.spec).cpu().long()
+             - cells.long()).abs()
+    res["sketch_cells"] = int(cells.numel())
+    res["sketch_cells_apart"] = int((apart > 0).sum())
+    if int(apart.max()) > 1 or res["sketch_cells_apart"] > (
+            SKETCH_APART * cells.numel()):
+        fail(f"lm (e): the --sketch table is {res['sketch_cells_apart']} "
+             f"cells (max {int(apart.max())} states) from the CPU's")
+    log(f"lm (e): launch.train --preset 100m --steps {steps} --batch "
+        f"{batch} --seq {seq} --sketch in {res['train_100m_s']:.1f} s; its "
+        f"sketch "
+        f"{res['sketch_cells_apart']} of {res['sketch_cells']} cells one "
+        f"state from the CPU's update_batched")
+    t0 = time.perf_counter()
+    _, _, toks = serve.main(["--arch", "qwen2-0.5b"])
+    res["serve_s"] = time.perf_counter() - t0
+    if tuple(toks.shape) != (4, 32):
+        fail(f"lm (e): launch.serve generated {tuple(toks.shape)}")
+    argv = sys.argv
+    sys.argv = ["train_lm_torch.py", "--preset", "25m", "--steps", "20",
+                "--sketch"]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_path(str(pathlib.Path(__file__).resolve().parent
+                           / "examples" / "train_lm_torch.py"),
+                       run_name="__main__")
+    finally:
+        sys.argv = argv
+    res["example_25m_s"] = time.perf_counter() - t0
+    log(f"lm (e): launch.serve at its defaults in {res['serve_s']:.1f} s; "
+        f"examples/train_lm_torch.py --preset 25m --steps 20 --sketch in "
+        f"{res['example_25m_s']:.1f} s")
+    return res
+
+
+def lm_profiles(dev) -> dict:
+    """Phase 12's profiles of the LM path: one qwen2-0.5b train step at
+    LM_BATCH x LM_SEQ (after one warm-up step), one prefill of SERVE_BATCH
+    x SERVE_PROMPT and one decode step on its cache, each under
+    torch.profiler (device busy and idle share, launches, top kernels)."""
+    from repro_torch.configs import qwen2_05b
+    from repro_torch.data import corpus, pipeline
+    from repro_torch.models import params as mp
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop, optimizer
+    cfg = qwen2_05b.CFG
+    params = mp.init_tree(tf.param_specs(cfg), SEED, dev)
+    src = pipeline.token_batch_source(
+        corpus.generate(corpus.CorpusSpec(n_tokens=500_000)), LM_BATCH,
+        LM_SEQ, SEED)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in src.batch(0, 0, 1).items()}
+    init, step = loop.make_train_step(
+        lambda p, b, r: tf.loss_fn(p, b, cfg),
+        optimizer.OptimizerConfig(peak_lr=LM_LR, warmup_steps=0,
+                                  decay_steps=LM_STEPS))
+    held = {"state": init(params, np.asarray([SEED, 15], np.uint32)),
+            "pos": torch.full((), SERVE_PROMPT, dtype=torch.int32,
+                              device=dev)}
+    prompt = batch["tokens"][:1, :SERVE_PROMPT].expand(SERVE_BATCH, -1)
+
+    def train_step():
+        held["state"], _ = step(held["state"], batch)
+
+    def prefill():
+        with torch.no_grad():
+            held["logits"], held["cache"] = tf.prefill(
+                held["state"].params, prompt, cfg,
+                max_len=SERVE_PROMPT + SERVE_GEN)
+
+    def decode_step():
+        with torch.no_grad():
+            tf.decode_step(held["state"].params, held["cache"],
+                           torch.argmax(held["logits"], -1)[:, None],
+                           held["pos"], cfg)
+
+    train_step()
+    prefill()
+    decode_step()
+    res = {}
+    for what, drive in (("qwen2_train_step", train_step),
+                        ("qwen2_prefill_2k", prefill),
+                        ("qwen2_decode_step", decode_step)):
+        prof = profile_epoch(drive)
+        res[what] = prof
+        log(f"one {what} under torch.profiler: wall {prof['wall_ms']:.3f} "
+            f"ms, device busy {prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}, runtime calls "
+            f"{prof['runtime_calls']}; device top "
+            f"{[(r['name'][:48], round(r['ms'], 3), r['count']) for r in prof['device_top'][:6]]}")
+    return res
+
+
+def lm_phase(dev) -> tuple:
+    """Phase 15: the LM and sequential-recommender scaffold, (a)-(e), TF32
+    off.  Returns (kernel launches, the numbers it reports)."""
+    from repro_torch.kernels import sketch as ksk
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    res = {"live_before_bytes": torch.cuda.memory_allocated(),
+           "peak_before_bytes": torch.cuda.max_memory_allocated()}
+    res["qwen2"] = qwen_full(dev)
+    res["other_lms"] = other_lms(dev)
+    res["twins"] = {n: lm_twin(dev, n) for n in (
+        "qwen2-0.5b", "phi3-mini-3.8b", "gemma2-27b",
+        "llama4-scout-17b-a16e", "deepseek-v2-lite-16b")}
+    res["twins"].update({n: seqrec_twin(dev, n)
+                         for n in ("sasrec", "bert4rec")})
+    log(f"lm (c): seven smoke configs card == CPU within {LM_FWD_TOL} / "
+        f"{LM_GRAD_TOL}: {res['twins']}")
+    res["seqrec"] = {n: seqrec_full(dev, n) for n in ("sasrec", "bert4rec")}
+    res["entry_points"] = lm_entry_points(dev)
+    res["peak_bytes"] = max(
+        [res["peak_before_bytes"], torch.cuda.max_memory_allocated()]
+        + [r["peak_bytes"] for r in (
+            res["qwen2"]["train"], res["qwen2"]["serve_2k"],
+            res["qwen2"]["decode_32k"], *res["other_lms"].values(),
+            *res["seqrec"].values())])
+    fresh_peak()
+    launches = dict(ksk.kernel_launches())
+    res["seconds"] = time.perf_counter() - t0
+    log(f"lm phase: {res['seconds']:.1f} s; launches {launches} (no kernel "
+        f"lies on this path)")
+    return launches, res
+
+
 def main(device: str = "cuda") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -4256,6 +4855,11 @@ def main(device: str = "cuda") -> None:
     # ---- 13. the repair, the paper's path, sharded at world size 1 --------
     paper_launches, paper_report = paper_phase(dev)
 
+    # ---- 15. the LM and sequential-recommender scaffold --------------------
+    # Before phase 14: phase 14's drives keep its 13 GiB of DLRM tables
+    # alive for phase 12, and llama4-scout's layers need 41 GiB here.
+    lm_launches, lm_report = lm_phase(dev)
+
     # ---- 14. the sketch-gated recommender path -----------------------------
     rec_launches, rec_report, rec_drives = recsys_phase(dev)
 
@@ -4324,11 +4928,13 @@ def main(device: str = "cuda") -> None:
             f"{prof['runtime_calls']}; device top "
             f"{[(r['name'][:48], round(r['ms'], 3), r['count']) for r in prof['device_top'][:6]]}")
     del rec_drives
+    lm_report["profiles"] = lm_profiles(dev)
     append_host["after_profiler"] = append_host_us(dev, ring, append_calls)
     log("append wrapper host time by part after the profiler sessions, us "
         f"per call: {append_host['after_profiler']}")
     del svc, wsvc, tiered_svcs
     peak = max(tier_report["peak_device_bytes_before"],
+               lm_report["peak_bytes"],
                rec_report["train"]["peak_before_bytes"],
                rec_report["train"]["peak_bytes"],
                torch.cuda.max_memory_allocated())
@@ -4357,7 +4963,7 @@ def main(device: str = "cuda") -> None:
                     + flush_launches[name] + read_launches[name]
                     + adm_launches[name] + tier_launches[name]
                     + alg_launches[name] + paper_launches[name]
-                    + rec_launches[name])
+                    + rec_launches[name] + lm_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -4367,13 +4973,14 @@ def main(device: str = "cuda") -> None:
             f"ms ({rep['bytes']} B, {rep['ops']} ops); launches tracked / "
             f"windowed / untracked path / sync-free enqueue / sync-free "
             f"flushes / sync-free reads / admission and snapshots / "
-            f"tiering / algebra and probe / paper path / recsys path "
-            f"{main_launches[name]} / "
+            f"tiering / algebra and probe / paper path / recsys path / "
+            f"LM scaffold {main_launches[name]} / "
             f"{win_launches[name]} / {flat_launches[name]} / "
             f"{sync_launches[name]} / {flush_launches[name]} / "
             f"{read_launches[name]} / {adm_launches[name]} / "
             f"{tier_launches[name]} / {alg_launches[name]} / "
-            f"{paper_launches[name]} / {rec_launches[name]}")
+            f"{paper_launches[name]} / {rec_launches[name]} / "
+            f"{lm_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4391,7 +4998,7 @@ def main(device: str = "cuda") -> None:
         "profile_epoch": profile, "window_path": e2e2,
         "admission": adm_report, "tiering": tier_report,
         "algebra": alg_report, "paper": paper_report,
-        "recsys": rec_report}), flush=True)
+        "recsys": rec_report, "lm": lm_report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@ Each config module registers an `Arch` with:
   * `smoke_cfg`  -- a reduced same-family config for CPU runs;
   * `shapes`     -- the family's input-shape cells.
 
-The port registers the recommender configurations (`two_tower`,
-`dlrm_mlperf`) and the paper's own sketch configuration
-(`paper_sketch`); the other model configurations join `_MODULES` as
-they are ported.  The shape tables are the reference's, cell for cell.
+The port registers the five LM configurations, the four recommender
+configurations and the paper's own sketch configuration
+(`paper_sketch`); `dimenet` joins `_MODULES` with the graph slice.  The
+shape tables are the reference's, cell for cell.
 """
 from __future__ import annotations
 
@@ -66,7 +66,10 @@ def register(arch: Arch) -> Arch:
     return arch
 
 
-_MODULES = ["two_tower", "dlrm_mlperf", "paper_sketch"]
+_MODULES = [
+    "deepseek_v2_lite", "llama4_scout", "phi3_mini", "qwen2_05b", "gemma2_27b",
+    "sasrec", "two_tower", "bert4rec", "dlrm_mlperf", "paper_sketch",
+]
 
 
 def load_all() -> dict:

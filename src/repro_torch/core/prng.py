@@ -17,7 +17,8 @@ rows' offsets reach the device without a synchronize (`core/staging.py`).
 
 `split(key, num)` is `jax.random.split` on a raw key under the same
 scheme: key i is the pair threefry2x32(key, (0, i)), computed on the host
-(num is small and the keys feed host-side draws).
+(num is small and the keys feed host-side draws).  `randint` is
+`jax.random.randint` on a raw key (int32), from two `random_bits` draws.
 """
 from __future__ import annotations
 
@@ -58,12 +59,18 @@ def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return f.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform_indices(key, index: torch.Tensor) -> torch.Tensor:
-    """float32 uniforms at the given flat (int64) draw indices."""
+def _bits(key, index: torch.Tensor) -> torch.Tensor:
+    """The 32 random bits (in int64) at the given flat (int64) draw
+    indices of a raw key."""
     k = np.asarray(key, dtype=np.uint32).reshape(2)
     b1, b2 = threefry2x32(int(k[0]), int(k[1]), index >> 32,
                           index & MASK32)
-    return _bits_to_uniform(b1 ^ b2)
+    return b1 ^ b2
+
+
+def uniform_indices(key, index: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms at the given flat (int64) draw indices."""
+    return _bits_to_uniform(_bits(key, index))
 
 
 def uniform(key, shape, device="cpu") -> torch.Tensor:
@@ -92,3 +99,33 @@ def split(key, num: int) -> np.ndarray:
     idx = torch.arange(int(num), dtype=torch.int64)
     b1, b2 = threefry2x32(int(k[0]), int(k[1]), idx >> 32, idx & MASK32)
     return torch.stack([b1, b2], dim=1).numpy().astype(np.uint32)
+
+
+def random_bits(key, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint32)` on a raw key: an int64 tensor
+    of uint32 values."""
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return _bits(key, idx).reshape(tuple(shape))
+
+
+def randint(key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """`jax.random.randint(np.asarray(key, np.uint32), shape, minval,
+    maxval)` (int32), bit for bit: jax 0.9.0's `_randint` splits the key
+    in two, draws 32 random bits from each half, and folds the pair into
+    [minval, maxval) through the span multiplier (2^16 % span)^2 % span,
+    every product and sum wrapping at 32 bits as in uint32 (so a span
+    above 2^16 gets multiplier 0 and draws `lower % span` alone)."""
+    lo32, hi32 = -2**31, 2**31 - 1
+    if not (lo32 <= minval <= hi32 and lo32 <= maxval <= hi32):
+        raise ValueError("randint bounds must fit in int32")
+    k1, k2 = split(key, 2)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = (((2**16 % span) ** 2) & MASK32) % span
+    # (higher % span) * mult < 2^63: span < 2^32 and mult < span
+    off = (((higher % span) * mult) & MASK32) + lower % span
+    off = (off & MASK32) % span
+    return (off + minval).to(torch.int32)

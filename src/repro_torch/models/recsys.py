@@ -1,6 +1,6 @@
-"""RecSys model family, PyTorch: DLRM and two-tower retrieval.
+"""RecSys model family, PyTorch: DLRM, SASRec, BERT4Rec, two-tower retrieval.
 
-Counterpart of the DLRM and two-tower halves of `repro/models/recsys.py`.
+Counterpart of `repro/models/recsys.py`.
 The counting plane (the paper's CMLS sketch) enters here in two places:
   * admission -- ids pass through a sketch-gated admission map before
     the embedding lookup (`core/admission.py`; the tables are then
@@ -14,8 +14,15 @@ autograd computes every gradient: no Pallas kernel sits on this path.
 The reference's `constrain` calls do nothing outside its `use_rules`
 context and are left out until the sharding slice, which also brings
 `dlrm_lookup_a2a`, `dlrm_sparse_update_sharded` and
-`dlrm_train_step_sparse`; SASRec and BERT4Rec come with the attention
-layers of the LM slice.
+`dlrm_train_step_sparse`.
+
+SASRec and BERT4Rec share one encoder block (`models/attention.py`'s
+`gqa_apply`, no rope, causal or bidirectional).  Their sampled-softmax
+negatives are `prng.randint` on the raw key, bit for bit the reference's
+`jax.random.randint`, and BERT4Rec's mask is `prng.uniform` of the first
+half of `prng.split(key)`.  `topk_over_catalog` selects with
+`layers.top_k`, which keeps `jax.lax.top_k`'s tie order (the lower index
+first): the last chunk's clamped ids all score item n_items - 1 alike.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, embedding_bag
+from repro_torch.core import prng
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import dense, embedding_bag, layer_norm, top_k
 from repro_torch.models.params import P
 
 # Criteo-1TB per-field cardinalities (MLPerf DLRM reference, day_fea_count),
@@ -170,6 +179,141 @@ def _bce(logit, y):
 def dlrm_loss(params, batch, c: DLRMConfig):
     loss = _bce(dlrm_apply(params, batch, c), batch["label"])
     return loss, {"bce": loss}
+
+
+# --------------------------------------------------------------------------
+# shared transformer encoder block (SASRec / BERT4Rec)
+# --------------------------------------------------------------------------
+
+def _enc_block_specs(d: int, n_heads: int, d_ff: int) -> dict:
+    return {
+        "attn": attn.gqa_specs(attn.GQAConfig(d_model=d, n_heads=n_heads,
+                                              n_kv_heads=n_heads,
+                                              d_head=d // n_heads)),
+        "ln1_s": P((d,), (None,), "ones"), "ln1_b": P((d,), (None,), "zeros"),
+        "ln2_s": P((d,), (None,), "ones"), "ln2_b": P((d,), (None,), "zeros"),
+        "ff1": P((d, d_ff), (None, "mlp")),
+        "ff1b": P((d_ff,), ("mlp",), "zeros"),
+        "ff2": P((d_ff, d), ("mlp", None)), "ff2b": P((d,), (None,), "zeros"),
+    }
+
+
+def _enc_block(p, x, d: int, n_heads: int, causal: bool):
+    cfg = attn.GQAConfig(d_model=d, n_heads=n_heads, n_kv_heads=n_heads,
+                         d_head=d // n_heads)
+    h = layer_norm(x, p["ln1_s"], p["ln1_b"])
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    a, _ = attn.gqa_apply(p["attn"], h, positions, cfg,
+                          kind="global" if causal else "bidir",
+                          use_rope=False)
+    x = x + a
+    h = layer_norm(x, p["ln2_s"], p["ln2_b"])
+    f = dense(F.relu(dense(h, p["ff1"], p["ff1b"])), p["ff2"], p["ff2b"])
+    return x + f
+
+
+# --------------------------------------------------------------------------
+# SASRec (arXiv:1808.09781)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SASRecConfig:
+    n_items: int = 1_000_000
+    embed_dim: int = 50
+    n_blocks: int = 2
+    n_heads: int = 1
+    seq_len: int = 50
+    n_neg: int = 128          # sampled-softmax negatives (adaptation for 1M items)
+    causal: bool = True
+    mask_frac: float = 0.0    # BERT4Rec sets > 0
+
+    @property
+    def pad_id(self) -> int:
+        return self.n_items       # one extra row: PAD (SASRec) / MASK (BERT4Rec)
+
+
+def sasrec_specs(c: SASRecConfig) -> dict:
+    return {
+        "items": table_spec(c.n_items + 1, c.embed_dim),
+        "pos": P((c.seq_len, c.embed_dim), (None, None), "normal:0.01"),
+        "blocks": {f"b{i}": _enc_block_specs(c.embed_dim, c.n_heads,
+                                             c.embed_dim)
+                   for i in range(c.n_blocks)},
+        "ln_s": P((c.embed_dim,), (None,), "ones"),
+        "ln_b": P((c.embed_dim,), (None,), "zeros"),
+    }
+
+
+def sasrec_encode(params, history, c: SASRecConfig):
+    """history (B, S) item ids -> (B, S, D) contextual item states."""
+    x = F.embedding(history.long(), params["items"])
+    x = x + params["pos"][None, :, :].to(x.dtype)
+    for i in range(c.n_blocks):
+        x = _enc_block(params["blocks"][f"b{i}"], x, c.embed_dim, c.n_heads,
+                       causal=c.causal)
+    return layer_norm(x, params["ln_s"], params["ln_b"])
+
+
+def _sampled_softmax(params, h, target, rng, c: SASRecConfig,
+                     logq: torch.Tensor | None = None):
+    """h (B, D) vs target (B,) + n_neg uniform negatives -> CE loss.
+    `rng`: a raw threefry key ((2,) uint32)."""
+    negs = prng.randint(rng, (c.n_neg,), 0, c.n_items, device=h.device)
+    cand = torch.cat([target.long(), negs.long()])       # (B + n_neg,)
+    e = F.embedding(cand, params["items"])               # (B+n, D)
+    logits = (h @ e.T).float()                           # (B, B+n)
+    if logq is not None:
+        logits = logits - logq[None, :]
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.diagonal().mean()
+
+
+def sasrec_loss(params, batch, c: SASRecConfig, rng):
+    h = sasrec_encode(params, batch["history"], c)[:, -1]  # next-item state
+    loss = _sampled_softmax(params, h, batch["target"], rng, c)
+    return loss, {"ce": loss}
+
+
+def bert4rec_loss(params, batch, c: SASRecConfig, rng):
+    """Masked-item modeling: mask ~mask_frac of positions, predict originals."""
+    hist = batch["history"]
+    b, s = hist.shape
+    r_mask, r_neg = prng.split(rng, 2)
+    m = prng.uniform(r_mask, (b, s), device=hist.device) < c.mask_frac
+    m[:, -1] = True  # always learn the last position
+    masked = torch.where(m, torch.full_like(hist, c.pad_id), hist)
+    hseq = sasrec_encode(params, masked, c)              # bidirectional
+    # loss on the final masked position (fixed-shape; other masks act as noise)
+    loss = _sampled_softmax(params, hseq[:, -1], hist[:, -1], r_neg, c)
+    return loss, {"ce": loss}
+
+
+def score_candidates(params, h, cand_ids):
+    """h (B, D) x candidate ids (C,) -> (B, C) scores (retrieval_cand cell)."""
+    e = F.embedding(cand_ids.long(), params["items"])
+    return (h @ e.T).float()
+
+
+def topk_over_catalog(params, h, c: SASRecConfig, k: int = 100,
+                      chunk: int = 65_536):
+    """Top-k items for each user state without materializing (B, n_items).
+
+    A loop over candidate chunks keeps peak memory at B*chunk scores;
+    chunk winners are re-ranked at the end (exact top-k).  Ids past the
+    catalog in the last chunk are clamped to n_items - 1, as in the
+    reference, and ties keep the lower position first."""
+    n_chunks = -(-c.n_items // chunk)
+    base = torch.arange(chunk, dtype=torch.int64, device=h.device)
+    vals, idx = [], []
+    for i in range(n_chunks):
+        ids = torch.clamp(i * chunk + base, max=c.n_items - 1)
+        v, j = top_k(score_candidates(params, h, ids), k)  # (B, k)
+        vals.append(v)
+        idx.append(ids[j])
+    vals = torch.stack(vals, dim=1).reshape(h.shape[0], -1)
+    idx = torch.stack(idx, dim=1).reshape(h.shape[0], -1)
+    v, j = top_k(vals, k)
+    return v, torch.gather(idx, 1, j)
 
 
 # --------------------------------------------------------------------------

@@ -11,7 +11,10 @@ the same device: equal cell states, ring cells and float32 estimates
 operation rounds as torch's own CUDA ops do).  `chip_smoke.py` repeats
 the comparison at the full-size shapes.  The tiering cases hold the
 tier ops to their plain versions, tiered services to untiered ones and
-to the plain engine, and the hot-only epoch to no synchronize.
+to the plain engine, and the hot-only epoch to no synchronize.  The
+model cases (the recommenders, the LM scaffold's five smoke configs,
+SASRec / BERT4Rec) have no kernel: they hold the card to the CPU within
+stated float32 tolerances.
 """
 import numpy as np
 import pytest
@@ -1607,3 +1610,116 @@ def test_untouched_table_rows_exact_after_a_step(cuda):
         touched[batch["sparse"][:, i].long()] = True
         assert not bool((moved & ~touched).any()), i
         assert bool(moved[touched].all()), i
+
+
+# --------------------------------------------------------------------------
+# the LM and sequential-recommender scaffold card against CPU
+# --------------------------------------------------------------------------
+
+LM_FWD = 1e-5     # logits, losses, caches, decode logits (normwise)
+LM_GRAD = 1e-4    # gradients
+
+
+def _lm_runs(name: str) -> list:
+    """[card, CPU] results of one LM smoke config from the same float32
+    weights: logits, loss, gradients, prefill cache and four decodes."""
+    from repro_torch.configs import registry
+    from repro_torch.models import params as mp
+    from repro_torch.models import transformer as tf
+    cfg = registry.get(name).smoke_cfg
+    p0 = convert.params_to_numpy(mp.init_tree(tf.param_specs(cfg), 0, "cpu"))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                             (2, 16)).astype(np.int32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        t = torch.from_numpy(toks).to(dev)
+        leaves = {k: v.requires_grad_() for k, v in mp.flatten(
+            convert.params_from_numpy(p0, dev)).items()}
+        loss, _ = tf.loss_fn(mp.unflatten(leaves),
+                             {"tokens": t, "targets": t.roll(-1, 1)}, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        params = mp.unflatten({k: v.detach() for k, v in leaves.items()})
+        with torch.no_grad():
+            logits, _ = tf.apply(params, t, cfg)
+            _, cache = tf.prefill(params, t[:, :12], cfg, 16)
+            prefilled = mp.flatten(cache)
+            decs = []
+            for pos in range(12, 16):
+                d, cache = tf.decode_step(params, cache, t[:, pos:pos + 1],
+                                          torch.tensor(pos), cfg)
+                decs.append(d)
+        out.append({"logits": logits, "loss": loss.detach(),
+                    "grads": dict(zip(leaves, grads)), "cache": prefilled,
+                    "decode": torch.stack(decs)})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "phi3-mini-3.8b",
+                                  "gemma2-27b", "llama4-scout-17b-a16e",
+                                  "deepseek-v2-lite-16b"])
+def test_lm_card_equals_cpu(cuda, no_tf32, name):
+    card, host = _lm_runs(name)
+    assert card["logits"].device.type == "cuda"
+    for k in ("logits", "loss", "decode"):
+        assert _rel(card[k], host[k]) <= LM_FWD, k
+    for k, v in card["cache"].items():
+        assert _rel(v.float(), host["cache"][k].float()) <= LM_FWD, k
+    for k, v in card["grads"].items():
+        assert _rel(v, host["grads"][k]) <= LM_GRAD, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sasrec", "bert4rec"])
+def test_seqrec_card_equals_cpu(cuda, no_tf32, name):
+    """Encoding, the loss with one raw key and its gradients within
+    LM_FWD / LM_GRAD; `topk_over_catalog` ids equal."""
+    from repro_torch.configs import registry
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    cfg = registry.get(name).smoke_cfg
+    loss_fn = rs.sasrec_loss if name == "sasrec" else rs.bert4rec_loss
+    p0 = convert.params_to_numpy(mp.init_tree(rs.sasrec_specs(cfg), 0,
+                                              "cpu"))
+    b = recsys_stream.seq_batch(0, 0, 1, global_batch=64,
+                                n_items=cfg.n_items, seq_len=cfg.seq_len)
+    out = []
+    for dev in ("cuda", "cpu"):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        leaves = {k: v.requires_grad_() for k, v in mp.flatten(
+            convert.params_from_numpy(p0, dev)).items()}
+        params = mp.unflatten(leaves)
+        loss, _ = loss_fn(params, batch, cfg, np.array([0, 7], np.uint32))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            h = rs.sasrec_encode(params, batch["history"], cfg)
+            v, ids = rs.topk_over_catalog(params, h[:, -1], cfg, k=20,
+                                          chunk=64)
+        out.append((h, loss.detach(), grads, v, ids))
+    (hc, lc, gc, vc, ic), (hh, lh, gh, vh, ih) = out
+    assert _rel(hc, hh) <= LM_FWD and _rel(lc, lh) <= LM_FWD
+    assert _rel(vc, vh) <= LM_FWD and torch.equal(ic.cpu(), ih)
+    for a, b_ in zip(gc, gh):
+        assert _rel(a, b_) <= LM_GRAD
+
+
+@pytest.mark.cuda
+def test_topk_over_catalog_ties_on_the_card(cuda):
+    """1,000,000 items in 65,536-id chunks on the card: the last chunk's
+    clamped copies of item 999,999 and two distinct items with its score
+    lead, lower id first, as on the CPU."""
+    import dataclasses
+    from repro_torch.models import recsys as rs
+    cfg = dataclasses.replace(rs.SASRecConfig(), embed_dim=8)
+    rng = np.random.default_rng(13)
+    items = rng.normal(size=(cfg.n_items + 1, 8)).astype(np.float32)
+    items[[5, 65_536, 999_999]] = 6.0
+    h = np.abs(rng.normal(size=(3, 8))).astype(np.float32)
+    got = [rs.topk_over_catalog({"items": torch.from_numpy(items).to(d)},
+                                torch.from_numpy(h).to(d), cfg, k=100)
+           for d in ("cuda", "cpu")]
+    assert torch.equal(got[0][1].cpu(), got[1][1])
+    ids = got[1][1].numpy()
+    assert (ids[:, :2] == [5, 65_536]).all() and (ids[:, 2:] == 999_999).all()
+    assert _rel(got[0][0], got[1][0]) <= LM_FWD

@@ -36,7 +36,7 @@ print(json.dumps({{"modules": mods, "bad": bad}}))
 
 def test_port_and_chip_smoke_import_no_jax_or_repro():
     examples = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
-    assert len(examples) == 4
+    assert len(examples) == 5
     code = _PROBE.format(src=str(SRC), smoke=str(ROOT / "chip_smoke.py"),
                          examples=examples)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -62,7 +62,14 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.data.recsys_stream", "repro_torch.data.pipeline",
               "repro_torch.train.optimizer", "repro_torch.train.loop",
               "repro_torch.configs.dlrm_mlperf",
-              "repro_torch.configs.two_tower"):
+              "repro_torch.configs.two_tower", "repro_torch.models.attention",
+              "repro_torch.models.moe", "repro_torch.models.transformer",
+              "repro_torch.launch.serve", "repro_torch.launch.train",
+              "repro_torch.configs.qwen2_05b", "repro_torch.configs.phi3_mini",
+              "repro_torch.configs.gemma2_27b",
+              "repro_torch.configs.llama4_scout",
+              "repro_torch.configs.deepseek_v2_lite",
+              "repro_torch.configs.sasrec", "repro_torch.configs.bert4rec"):
         assert m in res["modules"]
 
 
@@ -168,3 +175,19 @@ def test_chip_smoke_fails_without_cuda(no_cuda):
                          cwd=ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_lm_entry_points_without_device_raise_without_cuda(no_cuda):
+    """The LM launchers and `transformer.init_cache` run on CUDA unless
+    asked for the CPU: without a GPU, no device raises."""
+    from repro_torch.configs import qwen2_05b
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--gen", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_cache(qwen2_05b.SMOKE, 1, 8)
+    cache = transformer.init_cache(qwen2_05b.SMOKE, 1, 8, device="cpu")
+    assert cache["blocks"]["l0"]["pos"].device.type == "cpu"

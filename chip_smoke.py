@@ -226,6 +226,30 @@ exit, no result line) if anything disagrees:
                 most 1e-4 of cells one state apart), `launch/serve.main
                 --arch qwen2-0.5b`, `examples/train_lm_torch.py --preset
                 25m --steps 20 --sketch`;
+ 16. graph and routed -- after phase 15, before 14, TF32 off, no kernel
+                on its path: (a) DimeNet at its full config (6 blocks,
+                d_hidden 128, 8 bilinear, 7 x 6 bases) trained 5 steps
+                through `make_train_step` (OptimizerConfig() with no
+                warmup) in the four GNN_SHAPES regimes: molecule (128
+                graphs x 30 nodes x 64 edges), full_graph_sm (2,708 nodes,
+                10,556 edges padded to 10,752, 1,433 features), minibatch_lg
+                (a fresh 1,024-seed (15, 10) subgraph of 169,984 nodes and
+                168,960 edges each step from a `synthetic_graph` of the
+                published 232,965 nodes and 114,615,892 edges) and
+                ogb_products (2,449,029 nodes, edges cut to OGB_EDGES);
+                zero-length edges masked, node labels a fixed projection
+                of the features; losses finite and falling, step ms
+                (first, steady), edges/s, model FLOP/s, peak above live
+                below 60 GiB; the smoke configs card against CPU; (b) at
+                world size 1 on NCCL: route / send_back with drops,
+                `moe_apply_a2a` == `moe_apply` at deepseek-v2-lite's MoE
+                widths on 8,192 float32 tokens, `compressed_allreduce_mean`
+                of 64 MiB == dequantize(quantize(g)), `dlrm_lookup_a2a` ==
+                `dlrm_lookup` on (c)'s tables, `loss_fn_sharded` ==
+                `loss_fn`; (c) `dlrm_train_step_sparse` at dlrm-mlperf's
+                widths on 26 tables of 1,049,600 rows (13.01 GiB), 12
+                steps of 65,536: untouched rows bit-identical, step ms
+                and peak, one step card against CPU;
  12. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
@@ -240,8 +264,9 @@ exit, no result line) if anything disagrees:
                 cudaLaunchKernel), kernel 7 alone on phase 11's decayed
                 leaf, phase 14's recsys drives, a qwen2-0.5b train step
                 (4 x 4,096), a prefill (8 x 2,048) and a decode step on
-                its cache (phase 15's path, built anew here), then the
-                append wrappers' host time again.
+                its cache (phase 15's path, built anew here), one DimeNet
+                minibatch_lg train step (phase 16's), then the append
+                wrappers' host time again.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as its last line {"ok": true, "device": {...}}.
@@ -3926,11 +3951,11 @@ LM_GRAD_TOL = 1e-4
 SKETCH_APART = 1e-4        # CMLS16 cells one state apart, at most this share
 
 
-def lm_peak(what: str, res: dict, base: int) -> None:
+def peak_report(what: str, res: dict, base: int) -> None:
     torch.cuda.synchronize()
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     res["peak_above_live_bytes"] = res["peak_bytes"] - base
-    log(f"lm {what}: peak {res['peak_bytes'] / 2**30:.2f} GiB "
+    log(f"{what}: peak {res['peak_bytes'] / 2**30:.2f} GiB "
         f"({res['peak_above_live_bytes'] / 2**30:.2f} GiB above the "
         f"{base / 2**30:.2f} GiB live before)")
 
@@ -4032,7 +4057,7 @@ def qwen_full(dev) -> dict:
                                                            LM_SEQ)}
     res["train"]["model_flops_per_s"] = (
         res["train"]["model_flops_per_step"] / step_ms * 1e3)
-    lm_peak("(a) train", res["train"], base)
+    peak_report("lm (a) train", res["train"], base)
     if res["train"]["peak_bytes"] >= LM_PEAK_LIMIT:
         fail(f"lm (a): training peak {res['train']['peak_bytes']} B")
     log(f"lm (a): qwen2-0.5b {res['params']} parameters, {LM_STEPS} steps "
@@ -4045,7 +4070,7 @@ def qwen_full(dev) -> dict:
     base = fresh_peak()
     res["serve_2k"] = serve_and_check(dev, params, cfg, SERVE_BATCH,
                                       SERVE_PROMPT, SERVE_GEN, 151)
-    lm_peak("(a) serve 2k", res["serve_2k"], base)
+    peak_report("lm (a) serve 2k", res["serve_2k"], base)
     log(f"lm (a): prefill {SERVE_BATCH} x {SERVE_PROMPT} in "
         f"{res['serve_2k']['prefill_ms']:.1f} ms, {SERVE_GEN} decodes at "
         f"{res['serve_2k']['decode_tokens_per_s']:.0f} tokens/s "
@@ -4057,7 +4082,7 @@ def qwen_full(dev) -> dict:
         dev, params, dataclasses.replace(cfg, chunk_q=LONG_CHUNK_Q),
         LONG_BATCH, LONG_PROMPT, LONG_GEN, 152, max_len=LONG_LEN,
         check=False)
-    lm_peak("(a) decode 32k", res["decode_32k"], base)
+    peak_report("lm (a) decode 32k", res["decode_32k"], base)
     log(f"lm (a): prefill {LONG_BATCH} x {LONG_PROMPT} (chunk_q "
         f"{LONG_CHUNK_Q}) in {res['decode_32k']['prefill_ms']:.1f} ms, "
         f"{LONG_GEN} decodes on the {LONG_LEN}-slot cache at "
@@ -4101,7 +4126,7 @@ def other_lms(dev) -> dict:
                 dev, params, nodrop, OTHER_BATCH, OTHER_PROMPT, OTHER_GEN,
                 160 + i)["decode_vs_apply_max_abs"]
         del params
-        lm_peak(f"(b) {name}", r, base)
+        peak_report(f"lm (b) {name}", r, base)
         res[name] = r
         log(f"lm (b): {name} at {layers} layers ({r['params']} parameters): "
             f"prefill {OTHER_BATCH} x {OTHER_PROMPT} in "
@@ -4236,7 +4261,7 @@ def seqrec_full(dev, name: str) -> dict:
     if not all(np.isfinite(losses)):
         fail(f"lm (d) {name}: non-finite losses {losses}")
     res = {"batch": bsz, "losses": losses, "train_step_ms": ms}
-    lm_peak(f"(d) {name} train", res, base)
+    peak_report(f"lm (d) {name} train", res, base)
     params = state.params
     del state, step, init
     hist = torch.from_numpy(recsys_stream.seq_batch(
@@ -4440,6 +4465,565 @@ def lm_phase(dev) -> tuple:
     log(f"lm phase: {res['seconds']:.1f} s; launches {launches} (no kernel "
         f"lies on this path)")
     return launches, res
+
+
+# ---- phase 16 of slice 13: DimeNet, and the routed exchange on NCCL --------
+
+GNN_STEPS = 5              # train steps a regime
+GNN_PEAK_LIMIT = 60 * 2**30  # a regime's step peak above what is live
+# ogb_products' published 61,859,140 edges do not fit one card: at d_hidden
+# 128 a (T, d) float32 tensor of its 123,718,280 triplets is 63.3 GB alone,
+# and a checkpointed block's backward holds several (E, d) and (T, d)
+# tensors.  Cut to OGB_EDGES, which keeps the step's peak below
+# GNN_PEAK_LIMIT (the measured peak per edge is printed and in PERF.md).
+OGB_EDGES = 3_670_016
+MINIBATCH_BASE_EDGES = 114_615_892   # published (GNN_SHAPES), not cut
+LABEL_MAX_DEGREE = 64      # whole-graph regimes: labeled nodes' in-degree
+GNN_TWIN_FWD = 1e-5        # DimeNet card against CPU, normwise (atomics)
+GNN_TWIN_GRAD = 1e-4
+MOE_TOKENS = 8_192         # deepseek-v2-lite's MoE widths, float32
+MOE_TOL = 1e-5
+ALLREDUCE_FLOATS = 16 * 2**20   # a 64 MiB float32 gradient
+ROUTE_ROWS, ROUTE_CAP = 100_000, 65_536
+SPARSE_STEPS = 12          # dlrm_train_step_sparse steps at REC_BATCH
+
+
+def pad512(n: int) -> int:
+    """Edge lists padded to a multiple of 512 (the reference's cells)."""
+    return n + (-n) % 512
+
+
+def gnn_graph_batch(src, dst, n_nodes: int, max_angular: int, rng,
+                    edge_mask=None) -> dict:
+    """Edge and triplet lists of a graph, edges padded to a multiple of
+    512 with masked (0 -> 0) edges, triplets sampled over the padded list
+    and masked where they touch a padded or masked edge (numpy)."""
+    from repro_torch.data import graph
+    e = src.size
+    ep = pad512(e)
+    mask = np.zeros(ep, np.float32)
+    mask[:e] = 1.0 if edge_mask is None else edge_mask
+    src = np.concatenate([src, np.zeros(ep - e, np.int32)]).astype(np.int32)
+    dst = np.concatenate([dst, np.zeros(ep - e, np.int32)]).astype(np.int32)
+    kj, ji, valid = graph.build_triplets(src, dst, n_nodes, max_angular, rng)
+    t_mask = valid.astype(np.float32) * mask[kj] * mask[ji]
+    return {"edge_src": src, "edge_dst": dst, "edge_mask": mask,
+            "t_kj": kj, "t_ji": ji, "t_mask": t_mask}
+
+
+def mask_zero_length(b: dict) -> dict:
+    """Mask the edges of length 0 (a self-loop, or a sampled edge from a
+    node to itself) and the triplets touching them: such an edge has no
+    direction, and `_envelope` at r = 1e-6 is 5e6, so a few of them set
+    every activation's scale (a power-law `synthetic_graph` draws 14% of
+    its edges as 0 -> 0).  The CPU tests keep them, against the
+    reference."""
+    keep = (b["pos"][b["edge_src"].long()]
+            != b["pos"][b["edge_dst"].long()]).any(dim=-1)
+    b["edge_mask"] = b["edge_mask"] * keep
+    b["t_mask"] = (b["t_mask"] * b["edge_mask"][b["t_kj"].long()]
+                   * b["edge_mask"][b["t_ji"].long()])
+    return b
+
+
+def learnable_labels(feats: torch.Tensor, n_classes: int, gen):
+    """Node labels the features determine: the argmax of a fixed random
+    projection (random labels give a loss that need not fall in five
+    steps)."""
+    proj = torch.randn((feats.shape[1], n_classes), generator=gen,
+                       device=feats.device)
+    return torch.argmax(feats @ proj, dim=1).to(torch.int32)
+
+
+def gnn_regime_data(name: str, sp: dict, dev):
+    """(config, first batch on the card, batch of step s (None: the same
+    batch every step), sizes, host seconds to build the data) of one
+    GNN_SHAPES regime at its published shape (OGB_EDGES for ogb_products)."""
+    import dataclasses
+    from repro_torch.configs import dimenet as dcfg
+    from repro_torch.data import graph
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    up = lambda b: {k: torch.from_numpy(v).to(dev) if isinstance(  # noqa
+        v, np.ndarray) else v for k, v in b.items()}
+    sizes = {}
+    if name == "molecule":
+        cfg = dataclasses.replace(dcfg.CFG, readout="graph", n_targets=1)
+        m = graph.batched_molecules(sp["batch"], sp["n_nodes"],
+                                    sp["n_edges"], seed=SEED)
+        b = gnn_graph_batch(m["edge_src"], m["edge_dst"], m["pos"].shape[0],
+                            sp["max_angular"], rng)
+        b.update(pos=m["pos"], atom_z=m["atom_z"], graph_id=m["graph_id"],
+                 n_graphs=m["n_graphs"],
+                 target=rng.normal(size=sp["batch"]).astype(np.float32))
+        batch, later = up(b), None
+    elif name == "minibatch_lg":
+        cfg = dataclasses.replace(dcfg.CFG, readout="node",
+                                  d_feat=sp["d_feat"],
+                                  n_targets=sp["n_classes"])
+        base = graph.synthetic_graph(sp["base_nodes"], MINIBATCH_BASE_EDGES,
+                                     seed=SEED)
+        sizes["base_graph_s"] = time.perf_counter() - t0
+        n_base = base.n_nodes
+        feats = torch.randn((n_base, sp["d_feat"]), generator=gen,
+                            device=dev)
+        pos = torch.randn((n_base, 3), generator=gen, device=dev)
+        labels = learnable_labels(feats, sp["n_classes"], gen)
+
+        def later(step: int) -> dict:
+            r = np.random.default_rng((SEED, 16, step))
+            seeds = r.choice(n_base, sp["batch_nodes"], replace=False)
+            nodes, src, dst, emask = graph.sample_neighbors(
+                base, seeds, list(sp["fanout"]), r)
+            b = up(gnn_graph_batch(src, dst, nodes.size, sp["max_angular"],
+                                   r, emask.astype(np.float32)))
+            ids = torch.from_numpy(nodes.astype(np.int64)).to(dev)
+            lmask = torch.zeros(nodes.size, device=dev)
+            lmask[:sp["batch_nodes"]] = 1.0   # the seeds carry the labels
+            b.update(pos=pos[ids], x_feat=feats[ids], label=labels[ids],
+                     label_mask=lmask)
+            return mask_zero_length(b)
+        batch = later(0)
+    else:
+        cfg = dataclasses.replace(dcfg.CFG, readout="node",
+                                  d_feat=sp["d_feat"],
+                                  n_targets=sp["n_classes"])
+        n = sp["n_nodes"]
+        e = OGB_EDGES if name == "ogb_products" else sp["n_edges"]
+        g = graph.synthetic_graph(n, e, seed=SEED)
+        dst = np.repeat(np.arange(n), np.diff(g.indptr)).astype(np.int32)
+        b = up(gnn_graph_batch(g.indices, dst, n, sp["max_angular"], rng))
+        feats = torch.randn((n, sp["d_feat"]), generator=gen, device=dev)
+        b.update(pos=torch.randn((n, 3), generator=gen, device=dev),
+                 x_feat=feats,
+                 label=learnable_labels(feats, sp["n_classes"], gen))
+        b = mask_zero_length(b)
+        # labels on the nodes that receive 1 to LABEL_MAX_DEGREE messages:
+        # a node with none has a zero output whatever the weights, and a
+        # power-law hub sums hundreds of thousands (38% of the edges end
+        # at node 0), so one Adam step sends its logits to 1e4
+        deg = torch.zeros(n, device=dev).index_add_(
+            0, b["edge_dst"].long(), b["edge_mask"])
+        b["label_mask"] = ((deg >= 1) & (deg <= LABEL_MAX_DEGREE)).float()
+        sizes["labeled_nodes"] = int(b["label_mask"].sum())
+        batch, later = b, None
+    sizes.update(nodes=int(batch["pos"].shape[0]),
+                 edges=int(batch["edge_src"].numel()),
+                 valid_edges=int(batch["edge_mask"].sum()),
+                 triplets=int(batch["t_kj"].numel()),
+                 valid_triplets=int(batch["t_mask"].sum()))
+    torch.cuda.synchronize()
+    sizes["data_s"] = time.perf_counter() - t0
+    return cfg, batch, later, sizes
+
+
+def gnn_train(dev, name: str, sp: dict) -> tuple:
+    """(a): one regime trained GNN_STEPS steps through `make_train_step`
+    (OptimizerConfig() with the warmup cut to 0 steps: its 100-step warmup
+    would train these steps at a learning rate of at most 1.2e-5).
+    Returns (report, a drive of one more step for phase 12, or None)."""
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import params as mp
+    from repro_torch.train import loop, optimizer
+    base = fresh_peak()
+    cfg, batch, later, sizes = gnn_regime_data(name, sp, dev)
+    params = mp.init_tree(dn.param_specs(cfg), SEED, dev)
+    init, step = loop.make_train_step(
+        lambda p, b, r: dn.loss_fn(p, b, cfg),
+        optimizer.OptimizerConfig(warmup_steps=0, decay_steps=GNN_STEPS))
+    state = init(params, np.asarray([SEED, 16], np.uint32))
+    first = batch
+    losses, ms, sample_s = [], [], []
+    for s in range(GNN_STEPS):
+        if later is not None and s:
+            t0 = time.perf_counter()
+            batch = later(s)
+            torch.cuda.synchronize()
+            sample_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    res = {"config": {"d_feat": cfg.d_feat, "n_targets": cfg.n_targets,
+                      "readout": cfg.readout}, **sizes,
+           "losses": losses, "step_ms": ms}
+    if later is not None:
+        # fresh subgraphs each step: the first one's loss, before and after
+        with torch.no_grad():
+            res["first_batch_loss_after"] = float(dn.loss_fn(
+                state.params, first, cfg)[0])
+        res["sample_s"] = summary(sample_s)
+        falling = res["first_batch_loss_after"] < losses[0]
+    else:
+        falling = losses[-1] < losses[0]
+    steady = float(np.median(ms[1:]))
+    flops = dn.model_flops(cfg, sizes["nodes"], sizes["edges"],
+                           sizes["triplets"], cfg.d_feat)
+    res.update(step_ms_first=ms[0], step_ms_steady=steady,
+               edges_per_s=sizes["edges"] / steady * 1e3,
+               model_flops_per_step=flops,
+               model_flops_per_s=flops / steady * 1e3)
+    peak_report(f"gnn (a) {name}", res, base)
+    res["peak_bytes_per_edge"] = res["peak_above_live_bytes"] / sizes["edges"]
+    if not (all(np.isfinite(losses)) and falling):
+        fail(f"gnn (a) {name}: losses not finite and falling: {res}")
+    if res["peak_above_live_bytes"] >= GNN_PEAK_LIMIT:
+        fail(f"gnn (a) {name}: step peak {res['peak_above_live_bytes']} B "
+             f"above what is live")
+    log(f"gnn (a) {name}: {sizes['nodes']} nodes, {sizes['edges']} edges, "
+        f"({sizes['valid_edges']} valid), {sizes['triplets']} triplets "
+        f"({sizes['valid_triplets']} valid), "
+        + (f"{sizes['labeled_nodes']} labeled nodes, "
+           if "labeled_nodes" in sizes else "")
+        + f"data {sizes['data_s']:.1f} s; losses "
+        f"{[round(x, 5) for x in losses]}"
+        + (f" (first subgraph after: {res['first_batch_loss_after']:.5f})"
+           if later is not None else "")
+        + f"; step ms first {ms[0]:.1f}, steady {steady:.2f} "
+        f"({[round(x, 2) for x in ms]}); {res['edges_per_s']:.3e} edges/s, "
+        f"{res['model_flops_per_s'] / 1e12:.2f} model TFLOP/s; peak "
+        f"{res['peak_above_live_bytes'] / 2**30:.2f} GiB above live "
+        f"({res['peak_bytes_per_edge']:.0f} B an edge)")
+    drive = None
+    if name == "minibatch_lg":
+        held = {"state": state}
+
+        def drive():
+            held["state"], _ = step(held["state"], batch)
+    del params
+    return res, drive
+
+
+def gnn_twin(dev) -> dict:
+    """(a), card against CPU: the two smoke cases (molecules, graph
+    readout; a 256-node feature graph, node readout) from the same
+    float32 weights with nonzero output heads: outputs, loss and every
+    gradient within GNN_TWIN_FWD / GNN_TWIN_GRAD (normwise; the card's
+    segment sums add with atomics)."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs import dimenet as dcfg
+    from repro_torch.data import graph
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import params as mp
+    res = {}
+    for readout in ("graph", "node"):
+        rng = np.random.default_rng(SEED + 3)
+        if readout == "graph":
+            cfg = dataclasses.replace(dcfg.SMOKE, readout="graph")
+            m = graph.batched_molecules(8, 12, 24, seed=SEED)
+            b = gnn_graph_batch(m["edge_src"], m["edge_dst"], 96, 4, rng)
+            b.update(pos=m["pos"], atom_z=m["atom_z"], graph_id=m["graph_id"],
+                     n_graphs=8,
+                     target=rng.normal(size=8).astype(np.float32))
+        else:
+            cfg = dataclasses.replace(dcfg.SMOKE, readout="node", d_feat=8,
+                                      n_targets=5)
+            g = graph.synthetic_graph(256, 2048, seed=SEED + 1)
+            dst = np.repeat(np.arange(256), np.diff(g.indptr)).astype(
+                np.int32)
+            b = gnn_graph_batch(g.indices, dst, 256, 3, rng)
+            b.update(pos=rng.normal(size=(256, 3)).astype(np.float32),
+                     x_feat=rng.normal(size=(256, 8)).astype(np.float32),
+                     label=rng.integers(0, 5, 256).astype(np.int32))
+        p0 = mp.unflatten({
+            k: (rng.normal(size=s.shape) / np.sqrt(s.shape[-2])).astype(
+                np.float32)
+            for k, s in mp.flatten(dn.param_specs(cfg)).items()})
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            batch = {k: torch.from_numpy(v).to(d) if isinstance(v, np.ndarray)
+                     else v for k, v in b.items()}
+            leaves = {k: v.requires_grad_() for k, v in mp.flatten(
+                convert.params_from_numpy(p0, d)).items()}
+            loss, _ = dn.loss_fn(mp.unflatten(leaves), batch, cfg)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with torch.no_grad():
+                out = dn.apply(mp.unflatten(leaves), batch, cfg)
+            runs.append((out, loss.detach(), dict(zip(leaves, grads))))
+        (oc, lc, gc), (oh, lh, gh) = runs
+        r = {"output": rel_err(oc, oh), "loss": rel_err(lc, lh),
+             "grads": max(rel_err(g, gh[k]) for k, g in gc.items())}
+        if not (r["output"] <= GNN_TWIN_FWD and r["loss"] <= GNN_TWIN_FWD
+                and r["grads"] <= GNN_TWIN_GRAD):
+            fail(f"gnn (a) {readout} readout card against CPU: {r}")
+        res[readout] = r
+    log(f"gnn (a) card against CPU (smoke configs, normwise; tolerance "
+        f"{GNN_TWIN_FWD} / {GNN_TWIN_GRAD}): {res}")
+    return res
+
+
+def routed_check(dev, tmp: str, tables, sparse_cfg) -> dict:
+    """(b): the routed exchange on a one-rank NCCL group, each routed form
+    against its unrouted one: route / send_back with drops, moe_apply_a2a
+    at deepseek-v2-lite's MoE widths (float32, capacity factors no token
+    overflows) within MOE_TOL of moe_apply, compressed_allreduce_mean on a
+    64 MiB gradient == dequantize(quantize(g)), dlrm_lookup_a2a on (c)'s
+    tables == dlrm_lookup, DimeNet's loss_fn_sharded == loss_fn."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import convert, routing
+    from repro_torch.configs import deepseek_v2_lite, dimenet as dcfg
+    from repro_torch.data import graph, recsys_stream
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import moe
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import compression
+    res = {}
+    mesh_lib.init_group(1, 0, backend="nccl", init_file=f"{tmp}/store16")
+    try:
+        mesh = mesh_lib.make_host_mesh(1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 161)
+        x = torch.randn((ROUTE_ROWS, 16), generator=gen, device=dev)
+        dest = torch.zeros(ROUTE_ROWS, dtype=torch.int64, device=dev)
+        recv, rt = routing.route(x, dest, ROUTE_CAP)
+        back = routing.send_back(recv * 2.0, rt)
+        kept = int(rt.kept.sum())
+        if not (kept == ROUTE_CAP and torch.equal(back[rt.kept],
+                                                  x[rt.kept] * 2.0)
+                and not bool(back[~rt.kept].any())):
+            fail(f"routed (b): route / send_back round trip ({kept} kept)")
+        res["route"] = {"rows": ROUTE_ROWS, "capacity": ROUTE_CAP,
+                        "dropped": ROUTE_ROWS - kept}
+
+        c = dataclasses.replace(
+            deepseek_v2_lite.CFG.moe,
+            capacity_factor=deepseek_v2_lite.CFG.moe.n_experts
+            / deepseek_v2_lite.CFG.moe.top_k)
+        p = mp.init_tree(moe.moe_specs(c), SEED, dev)
+        xt = torch.randn((MOE_TOKENS, c.d_model), generator=gen, device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_a, aux_a = moe.moe_apply_a2a(p, xt, c)
+            torch.cuda.synchronize()
+            a2a_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            y, aux = moe.moe_apply(p, xt, c)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((y_a - y).abs().max())
+        if not (err < MOE_TOL and float((aux_a - aux).abs()) < MOE_TOL):
+            fail(f"routed (b): moe_apply_a2a differs from moe_apply by {err}")
+        res["moe"] = {"tokens": MOE_TOKENS, "max_abs": err,
+                      "a2a_ms": a2a_ms, "moe_apply_ms": plain_ms}
+        del p, xt, y_a, y
+
+        g = torch.randn(ALLREDUCE_FLOATS, generator=gen, device=dev)
+        want = compression.dequantize(*compression.quantize(g), g.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compression.compressed_allreduce_mean(g)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            fail("routed (b): compressed_allreduce_mean != "
+                 "dequantize(quantize(g))")
+        res["allreduce"] = {"bytes": g.numel() * 4, "ms": ar_ms}
+        del g, want, got
+
+        b = recsys_stream.dlrm_batch(0, 0, 1, global_batch=REC_BATCH,
+                                     table_sizes=list(sparse_cfg.table_sizes),
+                                     seed=SEED)
+        ids = torch.from_numpy(b["sparse"]).to(dev)
+        with torch.no_grad():
+            if not torch.equal(rs.dlrm_lookup_a2a(tables, ids, sparse_cfg,
+                                                  mesh),
+                               rs.dlrm_lookup(tables, ids, sparse_cfg)):
+                fail("routed (b): dlrm_lookup_a2a != dlrm_lookup")
+        res["dlrm_lookup"] = {"batch": REC_BATCH,
+                              "sharded_fields": sum(rs.field_sharded(
+                                  sparse_cfg))}
+
+        cfg = dataclasses.replace(dcfg.SMOKE, readout="node", d_feat=8,
+                                  n_targets=5)
+        rng = np.random.default_rng(SEED + 5)
+        gr = graph.synthetic_graph(256, 2048, seed=SEED + 1)
+        dst = np.repeat(np.arange(256), np.diff(gr.indptr)).astype(np.int32)
+        gb = gnn_graph_batch(gr.indices, dst, 256, 3, rng)
+        gb.update(pos=rng.normal(size=(256, 3)).astype(np.float32),
+                  x_feat=rng.normal(size=(256, 8)).astype(np.float32),
+                  label=rng.integers(0, 5, 256).astype(np.int32))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in gb.items()}
+        gp = convert.params_from_numpy(mp.unflatten({
+            k: (rng.normal(size=s.shape) / np.sqrt(s.shape[-2])).astype(
+                np.float32)
+            for k, s in mp.flatten(dn.param_specs(cfg)).items()}), dev)
+        with torch.no_grad():
+            ls, _ = dn.loss_fn_sharded(gp, batch, cfg)
+            lw, _ = dn.loss_fn(gp, batch, cfg)
+        res["dimenet_sharded_rel"] = rel_err(ls, lw)
+        if res["dimenet_sharded_rel"] > GNN_TWIN_FWD:
+            fail(f"routed (b): loss_fn_sharded != loss_fn "
+                 f"({res['dimenet_sharded_rel']})")
+    finally:
+        dist.destroy_process_group()
+    log(f"routed (b) at world size 1 on NCCL: {res}")
+    return res
+
+
+def sparse_step_check(dev, cfg, tables) -> dict:
+    """(c): `dlrm_train_step_sparse` (the unrouted branch) at dlrm-mlperf's
+    widths on 26 tables of 1,049,600 rows (phase 14's gated shape; ids
+    drawn by `dlrm_batch` over those rows, no admission), SPARSE_STEPS
+    steps of REC_BATCH: finite losses, every row no id touched
+    bit-identical, touched rows moved; step ms and the peak."""
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import optimizer
+    base = fresh_peak()
+    opt = optimizer.OptimizerConfig(peak_lr=2e-3, warmup_steps=2,
+                                    decay_steps=REC_STEPS)
+    _, dense_update = optimizer.make_optimizer(opt,
+                                               label_fn=lambda p: "dense")
+    specs = rs.dlrm_specs(cfg)
+    params = {"tables": tables, **mp.init_tree(
+        {"bot": specs["bot"], "top": specs["top"]}, SEED, dev)}
+    state = {"dense": {k: {n: {"mu": torch.zeros_like(t),
+                               "nu": torch.zeros_like(t)}
+                           for n, t in params[k].items()}
+                       for k in ("bot", "top")},
+             "tables": {k: {"acc": torch.zeros(t.shape[0], device=dev)}
+                        for k, t in tables.items()}}
+    start = {k: v.clone() for k, v in tables.items()}
+    touched = {k: torch.zeros(v.shape[0], dtype=torch.bool, device=dev)
+               for k, v in tables.items()}
+    batches = [to_dev(recsys_stream.dlrm_batch(
+        s, 0, 1, global_batch=REC_BATCH, table_sizes=list(cfg.table_sizes),
+        seed=SEED), dev) for s in range(SPARSE_STEPS)]
+    losses, ms = [], []
+    for s, b in enumerate(batches):
+        for i in range(cfg.n_sparse):
+            touched[f"t{i}"][b["sparse"][:, i].long()] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = rs.dlrm_train_step_sparse(
+            params, state, b, s, SEED, cfg, opt, dense_update)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        fail(f"sparse (c): non-finite losses {losses}")
+    bad = moved = n_touched = 0
+    for k, t in tables.items():
+        diff = (t.view(torch.int32) != start[k].view(torch.int32)).any(dim=1)
+        bad += int((diff & ~touched[k]).sum())
+        moved += int(diff.sum())
+        n_touched += int(touched[k].sum())
+    if bad or not moved:
+        fail(f"sparse (c): {bad} untouched rows changed, {moved} moved")
+    res = {"losses": losses, "step_ms": summary(ms), "rows_touched":
+           n_touched, "rows_moved": moved}
+    peak_report("sparse (c)", res, base)
+    del start, batches
+    log(f"sparse (c): dlrm_train_step_sparse, {SPARSE_STEPS} steps of "
+        f"{REC_BATCH} x 26 on 26 x {cfg.table_sizes[0]}-row tables: losses "
+        f"{[round(x, 5) for x in losses]}; step ms {res['step_ms']}; rows "
+        f"touched {n_touched}, moved {moved}, untouched bit-identical; peak "
+        f"{res['peak_above_live_bytes'] / 2**30:.2f} GiB above live")
+    return res
+
+
+def sparse_twin(dev) -> dict:
+    """(c), card against CPU: one `dlrm_train_step_sparse` of the full MLP
+    widths on 26 x 5,120-row tables at batch TWIN_BATCH from the same
+    weights: loss within FWD_TOL, tables and dense leaves within
+    STEP_TOL (normwise)."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data import recsys_stream
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import optimizer
+    cfg = dataclasses.replace(dlrm_mlperf.CFG, table_sizes=(5_120,) * 26)
+    p0 = convert.params_to_numpy(mp.init_tree(rs.dlrm_specs(cfg), SEED,
+                                              "cpu"))
+    b = recsys_stream.dlrm_batch(0, 0, 1, global_batch=TWIN_BATCH,
+                                 table_sizes=list(cfg.table_sizes), seed=SEED)
+    opt = optimizer.OptimizerConfig(table_lr=0.1)
+    _, dense_update = optimizer.make_optimizer(opt,
+                                               label_fn=lambda p: "dense")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        params = convert.params_from_numpy(p0, d)
+        state = {"dense": {k: {n: {"mu": torch.zeros_like(t),
+                                   "nu": torch.zeros_like(t)}
+                               for n, t in params[k].items()}
+                           for k in ("bot", "top")},
+                 "tables": {k: {"acc": torch.zeros(t.shape[0], device=d)}
+                            for k, t in params["tables"].items()}}
+        params, state, m = rs.dlrm_train_step_sparse(
+            params, state, to_dev(b, d), 0, SEED, cfg, opt, dense_update)
+        runs.append((m["loss"], params))
+    res = {"loss": rel_err(runs[0][0], runs[1][0]),
+           "params": tree_rel_err(runs[0][1], runs[1][1])}
+    if not (res["loss"] <= FWD_TOL and res["params"] <= STEP_TOL):
+        fail(f"sparse (c) card against CPU: {res}")
+    log(f"sparse (c) card against CPU (batch {TWIN_BATCH}, 5,120-row "
+        f"tables, one step): {res} (tolerance {FWD_TOL} / {STEP_TOL})")
+    return res
+
+
+def gnn_phase(dev) -> tuple:
+    """Phase 16: DimeNet at CFG widths in the four GNN_SHAPES regimes and
+    its card-against-CPU twins (a), the routed exchange at world size 1 on
+    NCCL (b), `dlrm_train_step_sparse` at dlrm-mlperf's widths (c); TF32
+    off.  Returns (kernel launches, the numbers it reports, a drive of one
+    minibatch_lg DimeNet step for phase 12's profile)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs import registry
+    from repro_torch.core import admission as adm
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    res = {"live_before_bytes": torch.cuda.memory_allocated(),
+           "regimes": {}}
+    drive = None
+    for name, sp in registry.GNN_SHAPES.items():
+        res["regimes"][name], d = gnn_train(dev, name, sp)
+        drive = drive or d
+        gc.collect()
+    res["twin"] = gnn_twin(dev)
+    aspec = adm.AdmissionSpec()
+    cfg = dataclasses.replace(
+        dlrm_mlperf.CFG,
+        table_sizes=(aspec.n_fallback + aspec.table_rows,) * 26)
+    base = fresh_peak()
+    tables = mp.init_tree(rs.dlrm_specs(cfg)["tables"], SEED, dev)
+    res["table_bytes"] = torch.cuda.memory_allocated() - base
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        res["routed"] = routed_check(dev, tmp, tables, cfg)
+    res["sparse"] = sparse_step_check(dev, cfg, tables)
+    del tables
+    gc.collect()
+    res["sparse_twin"] = sparse_twin(dev)
+    res["peak_bytes"] = max(
+        [torch.cuda.max_memory_allocated(), res["sparse"]["peak_bytes"]]
+        + [r["peak_bytes"] for r in res["regimes"].values()])
+    fresh_peak()
+    launches = dict(ksk.kernel_launches())
+    res["seconds"] = time.perf_counter() - t0
+    log(f"gnn phase: {res['seconds']:.1f} s; launches {launches} (no kernel "
+        f"lies on this path)")
+    return launches, res, drive
 
 
 def main(device: str = "cuda") -> None:
@@ -4860,6 +5444,10 @@ def main(device: str = "cuda") -> None:
     # alive for phase 12, and llama4-scout's layers need 41 GiB here.
     lm_launches, lm_report = lm_phase(dev)
 
+    # ---- 16. DimeNet, the routed exchange, the row-sparse DLRM step --------
+    # Before phase 14 too (its drives keep 13 GiB alive for phase 12).
+    gnn_launches, gnn_report, gnn_drive = gnn_phase(dev)
+
     # ---- 14. the sketch-gated recommender path -----------------------------
     rec_launches, rec_report, rec_drives = recsys_phase(dev)
 
@@ -4929,12 +5517,20 @@ def main(device: str = "cuda") -> None:
             f"{[(r['name'][:48], round(r['ms'], 3), r['count']) for r in prof['device_top'][:6]]}")
     del rec_drives
     lm_report["profiles"] = lm_profiles(dev)
+    prof = profile_epoch(gnn_drive)
+    gnn_report["profile_minibatch_lg_step"] = prof
+    log(f"one DimeNet minibatch_lg train step under torch.profiler: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} "
+        f"ms, idle share {prof['idle_share']:.3f}, runtime calls "
+        f"{prof['runtime_calls']}; device top "
+        f"{[(r['name'][:48], round(r['ms'], 3), r['count']) for r in prof['device_top'][:8]]}")
+    del gnn_drive
     append_host["after_profiler"] = append_host_us(dev, ring, append_calls)
     log("append wrapper host time by part after the profiler sessions, us "
         f"per call: {append_host['after_profiler']}")
     del svc, wsvc, tiered_svcs
     peak = max(tier_report["peak_device_bytes_before"],
-               lm_report["peak_bytes"],
+               lm_report["peak_bytes"], gnn_report["peak_bytes"],
                rec_report["train"]["peak_before_bytes"],
                rec_report["train"]["peak_bytes"],
                torch.cuda.max_memory_allocated())
@@ -4963,7 +5559,8 @@ def main(device: str = "cuda") -> None:
                     + flush_launches[name] + read_launches[name]
                     + adm_launches[name] + tier_launches[name]
                     + alg_launches[name] + paper_launches[name]
-                    + rec_launches[name] + lm_launches[name])
+                    + rec_launches[name] + lm_launches[name]
+                    + gnn_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -4974,13 +5571,13 @@ def main(device: str = "cuda") -> None:
             f"windowed / untracked path / sync-free enqueue / sync-free "
             f"flushes / sync-free reads / admission and snapshots / "
             f"tiering / algebra and probe / paper path / recsys path / "
-            f"LM scaffold {main_launches[name]} / "
+            f"LM scaffold / graph and routed {main_launches[name]} / "
             f"{win_launches[name]} / {flat_launches[name]} / "
             f"{sync_launches[name]} / {flush_launches[name]} / "
             f"{read_launches[name]} / {adm_launches[name]} / "
             f"{tier_launches[name]} / {alg_launches[name]} / "
             f"{paper_launches[name]} / {rec_launches[name]} / "
-            f"{lm_launches[name]}")
+            f"{lm_launches[name]} / {gnn_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4998,7 +5595,8 @@ def main(device: str = "cuda") -> None:
         "profile_epoch": profile, "window_path": e2e2,
         "admission": adm_report, "tiering": tier_report,
         "algebra": alg_report, "paper": paper_report,
-        "recsys": rec_report, "lm": lm_report}), flush=True)
+        "recsys": rec_report, "lm": lm_report, "gnn": gnn_report}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@ Each config module registers an `Arch` with:
   * `smoke_cfg`  -- a reduced same-family config for CPU runs;
   * `shapes`     -- the family's input-shape cells.
 
-The port registers the five LM configurations, the four recommender
-configurations and the paper's own sketch configuration
-(`paper_sketch`); `dimenet` joins `_MODULES` with the graph slice.  The
-shape tables are the reference's, cell for cell.
+The port registers the reference's every configuration: the five LM
+configurations, DimeNet, the four recommender configurations and the
+paper's own sketch configuration (`paper_sketch`).  The shape tables are
+the reference's, cell for cell.
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ def register(arch: Arch) -> Arch:
 
 _MODULES = [
     "deepseek_v2_lite", "llama4_scout", "phi3_mini", "qwen2_05b", "gemma2_27b",
-    "sasrec", "two_tower", "bert4rec", "dlrm_mlperf", "paper_sketch",
+    "dimenet", "sasrec", "two_tower", "bert4rec", "dlrm_mlperf", "paper_sketch",
 ]
 
 

@@ -37,6 +37,7 @@ from repro_torch.core import admission, staging, topk
 from repro_torch.core import sketch as sk
 from repro_torch.core.counters import from_i64, signed_view
 from repro_torch.core.hashing import as_i64, mix32
+from repro_torch.routing import all_gather, all_to_all
 
 SENTINEL = 0xFFFF_FFFF
 _ROUTE_SALT = 0x60D5
@@ -44,14 +45,6 @@ _ROUTE_SALT = 0x60D5
 
 def _world(group) -> int:
     return dist.get_world_size(group)
-
-
-def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """(W, *x.shape): every rank's x in rank order."""
-    src = x.contiguous().reshape(-1)
-    out = src.new_empty((_world(group) * src.numel(),))
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.reshape(_world(group), *x.shape)
 
 
 # --------------------------------------------------------------------------
@@ -184,15 +177,6 @@ def _dispatch_layout(keys: torch.Tensor, n_shards: int, capacity: int):
             slot_of_key.to(torch.int32), kept)
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Row j of (W, ...) `x` goes to rank j; row j of the result came from
-    rank j (the reference's all_to_all, split and concat on axis 0)."""
-    src = signed_view(x).contiguous()
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
-    return out.view(x.dtype)
-
-
 def _received(local_device, keys, capacity: int, group):
     """Dispatch keys to their owning ranks: (flat received uint32 probes,
     slot_of_key, kept, n_shards)."""
@@ -200,7 +184,7 @@ def _received(local_device, keys, capacity: int, group):
     n_shards = _world(group)
     keys = ops.as_device_keys(keys, local_device)
     buf, slot_of_key, kept = _dispatch_layout(keys, n_shards, capacity)
-    return _all_to_all(buf, group).reshape(-1), slot_of_key, kept, n_shards
+    return all_to_all(buf, group).reshape(-1), slot_of_key, kept, n_shards
 
 
 def _valid_weights(flat: torch.Tensor) -> torch.Tensor:
@@ -225,7 +209,7 @@ def _route_estimates_back(est: torch.Tensor, recv_keys: torch.Tensor,
     capacity come back as -1.0."""
     est = torch.where(as_i64(recv_keys) == SENTINEL,
                       torch.zeros_like(est), est)
-    back = _all_to_all(est.reshape(n_shards, capacity), group).reshape(-1)
+    back = all_to_all(est.reshape(n_shards, capacity), group).reshape(-1)
     padded = torch.cat([back, back.new_full((1,), -1.0)])
     out = padded[torch.clamp_max(slot_of_key.to(torch.int64),
                                  n_shards * capacity)]
@@ -273,9 +257,9 @@ def routed_window_update(win, keys, rng, capacity: int, group=None,
 def _gathered_candidates(tracker: topk.TopK, group=None):
     """Every rank's (K,) tracker row gathered into flat (W * K,) keys,
     estimates and filled mask, in rank order."""
-    keys = _all_gather(signed_view(tracker.keys), group).reshape(-1)
-    est = _all_gather(tracker.estimates, group).reshape(-1)
-    filled = _all_gather(tracker.filled.to(torch.uint8), group).reshape(-1)
+    keys = all_gather(signed_view(tracker.keys), group).reshape(-1)
+    est = all_gather(tracker.estimates, group).reshape(-1)
+    filled = all_gather(tracker.filled.to(torch.uint8), group).reshape(-1)
     return keys.view(torch.uint32), est, filled.to(torch.bool)
 
 
@@ -312,7 +296,7 @@ def merged_metrics(values: torch.Tensor, group=None,
     (gauges, high-water marks)."""
     if mode not in ("sum", "max"):
         raise ValueError(f"unknown metric merge mode: {mode!r}")
-    out = _all_gather(values, group)
+    out = all_gather(values, group)
     return out.sum(dim=0) if mode == "sum" else out.max(dim=0).values
 
 

@@ -1,12 +1,15 @@
-"""Process-group construction for the sharded sketches
-(`core/sharded.py`), the counterpart of `repro/launch/mesh.py`.
+"""Process-group and mesh construction, the counterpart of
+`repro/launch/mesh.py`: the group the sharded sketches
+(`core/sharded.py`) run on, and the 2-D ("data", "model") host mesh of
+the routed model code (`make_host_mesh`).
 
 Nothing tells a process of a cluster, so the caller names the world size,
 its rank and a rendezvous: a file every rank can reach (a `FileStore`,
 `init_file`).  NCCL is the backend on the
 GPU, gloo the CPU backend, each only when named or implied: a run that
 asks for NCCL on a machine without CUDA raises instead of carrying on
-under gloo.
+under gloo.  `make_production_mesh` (the TPU pod's 16 x 16 layout) has
+no counterpart yet.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import tempfile
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 
 def init_group(world_size: int = 1, rank: int = 0, backend: str | None = None,
@@ -44,3 +48,17 @@ def init_group(world_size: int = 1, rank: int = 0, backend: str | None = None,
                             init_method=f"file://{os.path.abspath(init_file)}",
                             world_size=world_size, rank=rank)
     return dist.group.WORLD
+
+
+def make_host_mesh(model: int = 1):
+    """A ("data", "model") `DeviceMesh` of shape (world // model, model)
+    over the initialized default group (rank r at data r // model, model
+    r % model), on CUDA under NCCL and on the CPU under gloo.  Its axis
+    groups are `mesh.get_group("data")` and `mesh.get_group("model")`."""
+    world = dist.get_world_size()
+    if world % model:
+        raise ValueError(f"model axis {model} does not divide the world "
+                         f"size {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (world // model, model),
+                            mesh_dim_names=("data", "model"))

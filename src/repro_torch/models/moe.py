@@ -16,11 +16,12 @@ The reference's semantics, kept exactly:
     off.
 
 Covers DeepSeek-V2 (64 routed top-6 + 2 shared, normalized top-k gates)
-and Llama-4 Scout (16 routed top-1 + 1 shared).  `moe_apply_a2a` (manual
-expert parallelism over a mesh axis) comes with the sharding slice: with
-no mesh, the reference's `_moe_shardmap` runs `moe_apply`, and so does
-the port's transformer for `impl="a2a"`.  The reference's
-`sharding.constrain` calls wait for that slice too.
+and Llama-4 Scout (16 routed top-1 + 1 shared).  `moe_apply_a2a` is the
+manual expert parallelism of the reference: every rank of a
+`torch.distributed` group keeps its tokens and owns E / W experts, and
+one capacity-bounded all-to-all pair (`routing.route` / `send_back`)
+carries the (token, k) rows to their experts and back.  The reference's
+`sharding.constrain` calls (GSPMD placement) are left out.
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import routing
 from repro_torch.models.layers import mlp_apply, mlp_specs, top_k
 from repro_torch.models.params import P
 
@@ -77,21 +80,35 @@ def capacity(c: MoEConfig, n_tokens: int) -> int:
     return max(8, cap + (-cap) % 8)  # sublane-aligned
 
 
-def moe_apply(params, x, c: MoEConfig):
-    """x: (T, D) flattened tokens -> (y: (T, D), aux_loss: float32 scalar)."""
-    t, d = x.shape
-    cap = capacity(c, t)
-    n_slots = c.n_experts * cap
+def _router(params, x, c: MoEConfig):
+    """(gates (T, k), idx (T, k), aux): the router, top-k
+    with `jax.lax.top_k`'s tie order, and the load-balance aux loss
+    (Switch): E * sum_e fraction_e * router_prob_e."""
     logits = (x @ params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                         # (T, E)
     gates, idx = top_k(probs, c.top_k)                            # (T, k)
     if c.norm_topk:
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-
-    # load-balance aux loss (Switch): E * sum_e fraction_e * router_prob_e
     one_hot = F.one_hot(idx[:, 0], c.n_experts).float()
     aux = (c.n_experts * torch.mean(one_hot.mean(0) * probs.mean(0))
            * c.n_experts)
+    return gates, idx, aux
+
+
+def _experts(params, h):
+    """(E, C, d) slots -> (E, C, d): the gated expert FFNs."""
+    up = torch.einsum("ecd,edf->ecf", h, params["up"].to(h.dtype))
+    gate = torch.einsum("ecd,edf->ecf", h, params["gate"].to(h.dtype))
+    return torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
+                        params["down"].to(h.dtype))
+
+
+def moe_apply(params, x, c: MoEConfig):
+    """x: (T, D) flattened tokens -> (y: (T, D), aux_loss: float32 scalar)."""
+    t, d = x.shape
+    cap = capacity(c, t)
+    n_slots = c.n_experts * cap
+    gates, idx, aux = _router(params, x, c)
 
     flat_e = idx.reshape(-1)                                      # (T*k,)
     sorted_e, sort_idx = torch.sort(flat_e, stable=True)
@@ -106,11 +123,7 @@ def moe_apply(params, x, c: MoEConfig):
     # row n_slots is the spare that takes every dropped token, sliced off
     slots = x.new_zeros((n_slots + 1, d)).index_put(
         (dest,), x[tok] * keep[:, None].to(x.dtype))[:n_slots]
-    h = slots.reshape(c.n_experts, cap, d)
-    up = torch.einsum("ecd,edf->ecf", h, params["up"].to(h.dtype))
-    gate = torch.einsum("ecd,edf->ecf", h, params["gate"].to(h.dtype))
-    out = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
-                       params["down"].to(h.dtype))
+    out = _experts(params, slots.reshape(c.n_experts, cap, d))
 
     padded = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))], dim=0)
     y_sorted = padded[torch.clamp(dest, max=n_slots)]
@@ -119,4 +132,52 @@ def moe_apply(params, x, c: MoEConfig):
          * gates[..., None].to(x.dtype)).sum(dim=1)
     if c.n_shared:
         y = y + mlp_apply(params["shared"], x)
+    return y, aux.float()
+
+
+# --------------------------------------------------------------------------
+# manual expert parallelism: all-to-all token routing over a group
+# --------------------------------------------------------------------------
+
+def moe_apply_a2a(params_loc, x, c: MoEConfig, *, group=None,
+                  mean_group=None):
+    """Expert-parallel MoE over the ranks of `group` (every rank calls it).
+
+    Tokens stay local: each rank routes its (token, k) rows to the rank
+    owning the chosen expert with one capacity-bounded all-to-all
+    (`routing.route`), computes its local experts' GEMMs, and returns the
+    results with the inverse all-to-all (`send_back`).
+
+    params_loc: the router and shared leaves whole, the expert leaves
+    gate / up / down this rank's (E / W, ...) slice (rank r owns experts
+    r * E / W ...); x: (T_loc, d) local tokens.  Returns (y (T_loc, d),
+    aux averaged over `mean_group`; `group` when None).
+    """
+    n_shards = dist.get_world_size(group)
+    e_loc = c.n_experts // n_shards
+    t, d = x.shape
+    gates, idx, aux = _router(params_loc, x, c)
+    mean_group = group if mean_group is None else mean_group
+    aux = (routing.sum_over_ranks(aux, mean_group)
+           / dist.get_world_size(mean_group))
+
+    flat_e = idx.reshape(-1)                               # (T*k,)
+    x_rep = torch.repeat_interleave(x, c.top_k, dim=0)     # (T*k, d)
+    dest = torch.div(flat_e, e_loc, rounding_mode="floor")
+    cap_wire = max(8, int(t * c.top_k / n_shards * c.wire_capacity_factor))
+    recv, rt = routing.route({"x": x_rep, "e": flat_e}, dest, cap_wire,
+                             group)
+
+    rows = recv["x"]                                       # (R, d), zeros if invalid
+    local_e = recv["e"] % e_loc                            # local expert id
+    cap_loc = max(8, int(rows.shape[0] / e_loc * c.capacity_factor))
+    grouped, slot2, _ = routing.local_group_by({"x": rows}, local_e, e_loc,
+                                               cap_loc)
+    out = _experts(params_loc, grouped["x"])               # (E_loc, C, d)
+    rows_out = routing.ungroup(out, slot2, e_loc, cap_loc)  # (R, d)
+    y_flat = routing.send_back(rows_out, rt, group)        # (T*k, d)
+    y = (y_flat.reshape(t, c.top_k, d)
+         * gates[..., None].to(x.dtype)).sum(dim=1)
+    if c.n_shared:
+        y = y + mlp_apply(params_loc["shared"], x)
     return y, aux.float()

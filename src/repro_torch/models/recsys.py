@@ -12,9 +12,19 @@ Lookups are `F.embedding` / `F.embedding_bag` (the reference's `jnp.take`
 and gather + reduce), the matrix products `torch.matmul` / `bmm`, and
 autograd computes every gradient: no Pallas kernel sits on this path.
 The reference's `constrain` calls do nothing outside its `use_rules`
-context and are left out until the sharding slice, which also brings
-`dlrm_lookup_a2a`, `dlrm_sparse_update_sharded` and
-`dlrm_train_step_sparse`.
+context and are left out (GSPMD placement waits for the DTensor slice).
+
+The row-sharded DLRM path runs on a ("data", "model") `DeviceMesh`
+(`launch/mesh.make_host_mesh`).  A field is sharded over the model axis
+iff its rows (`table_spec`'s, padded to 512) are at least
+SHARD_ROWS_MIN and a multiple of 512, with interleaved placement: global
+row r lives on model rank r % S at slot r // S (`interleave_shard` cuts
+a rank's shard out of a whole table).  `dlrm_lookup_a2a` routes ids to
+their owners and rows back (`routing.route` / `send_back`);
+`dlrm_sparse_update_sharded` all-gathers (ids, bf16 gradients) over the
+data axis and applies row-wise Adagrad to the rank's own rows;
+`dlrm_train_step_sparse` differentiates the loss with respect to the
+gathered (B, 26, D) rows only, so no dense table gradient is ever made.
 
 SASRec and BERT4Rec share one encoder block (`models/attention.py`'s
 `gqa_apply`, no rope, causal or bidirectional).  Their sampled-softmax
@@ -31,10 +41,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import routing
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import dense, embedding_bag, layer_norm, top_k
-from repro_torch.models.params import P
+from repro_torch.models.params import P, flatten, unflatten
 
 # Criteo-1TB per-field cardinalities (MLPerf DLRM reference, day_fea_count),
 # capped at max_ind_range = 40M per the MLPerf benchmark convention.
@@ -93,10 +104,9 @@ class DLRMConfig:
     bot_mlp: tuple = (13, 512, 256, 128)
     top_mlp: tuple = (1024, 1024, 512, 256, 1)
     table_sizes: tuple = tuple(criteo_tables())
-    # §Perf knobs of the reference (dlrm-mlperf/train_batch hillclimb); the
-    # sharded paths they select come with the sharding slice
+    # §Perf knobs of the reference (dlrm-mlperf/train_batch hillclimb)
     sparse_update: bool = False   # manual row-wise updates, no dense grads
-    lookup: str = "gspmd"         # "gspmd" | "a2a" (routed shard_map lookup)
+    lookup: str = "gspmd"         # "gspmd" | "a2a" (routed lookup on a mesh)
 
     @property
     def n_sparse(self) -> int:
@@ -123,6 +133,62 @@ def dlrm_lookup(tables, sparse, c: DLRMConfig) -> torch.Tensor:
     sparse = sparse.long()
     return torch.stack([F.embedding(sparse[:, i], tables[f"t{i}"])
                         for i in range(c.n_sparse)], dim=1)
+
+
+def field_sharded(c: DLRMConfig) -> list[bool]:
+    """Per field: is its table row-sharded over the model axis (its
+    `table_spec` rows at least SHARD_ROWS_MIN and a multiple of 512)."""
+    rows = [table_spec(v, c.embed_dim).shape[0] for v in c.table_sizes]
+    return [r >= SHARD_ROWS_MIN and r % 512 == 0 for r in rows]
+
+
+def interleave_shard(tree: dict, c: DLRMConfig, rank: int,
+                     n_model: int) -> dict:
+    """Model rank `rank`'s part of per-field leaves keyed "t{i}" (tables
+    (rows, D), or accumulator dicts {"acc": (rows,)}): rows r % n_model ==
+    rank, in order, of each sharded field; an unsharded field whole."""
+    out = {}
+    for i, sharded in enumerate(field_sharded(c)):
+        leaf = tree[f"t{i}"]
+        cut = (lambda t: t[rank::n_model].contiguous()) if sharded else (
+            lambda t: t)
+        out[f"t{i}"] = ({k: cut(v) for k, v in leaf.items()}
+                        if isinstance(leaf, dict) else cut(leaf))
+    return out
+
+
+def _model_axis(mesh):
+    """(group, size, this rank's index) of the mesh's "model" axis."""
+    size = mesh.size(mesh.mesh_dim_names.index("model"))
+    return mesh.get_group("model"), size, mesh.get_local_rank("model")
+
+
+def dlrm_lookup_a2a(tables, sparse, c: DLRMConfig, mesh) -> torch.Tensor:
+    """Routed lookup on `mesh` (every rank calls it): ids travel to the
+    owner rank of the model axis, rows travel back.
+
+    `tables`: this rank's tables, a sharded field's interleaved shard
+    (`interleave_shard`: the Zipf head round-robins across ranks instead of
+    flooding rank 0), an unsharded field whole; `sparse`: this rank's
+    (B_loc, n_sparse) ids.  One capacity-bounded all-to-all pair per
+    sharded field (capacity max(8, int(B_loc / S * 2.0)); ids past it
+    come back as zero rows, as in the reference)."""
+    group, n_model, _ = _model_axis(mesh)
+    sparse = sparse.long()
+    cap = max(8, int(sparse.shape[0] / n_model * 2.0))
+    outs = []
+    for i, sharded in enumerate(field_sharded(c)):
+        ids_i = sparse[:, i]
+        if not sharded:
+            outs.append(F.embedding(ids_i, tables[f"t{i}"]))
+            continue
+        dest = ids_i % n_model                     # interleaved placement
+        slot = torch.div(ids_i, n_model, rounding_mode="floor")
+        recv, rt = routing.route({"idx": slot}, dest, cap, group)
+        rows = F.embedding(recv["idx"], tables[f"t{i}"])
+        rows = rows * rt.recv_valid[:, None].to(rows.dtype)
+        outs.append(routing.send_back(rows, rt, group))
+    return torch.stack(outs, dim=1)
 
 
 def dlrm_apply_from_emb(params, dense_x, embs, c: DLRMConfig):
@@ -179,6 +245,104 @@ def _bce(logit, y):
 def dlrm_loss(params, batch, c: DLRMConfig):
     loss = _bce(dlrm_apply(params, batch, c), batch["label"])
     return loss, {"bce": loss}
+
+
+@torch.no_grad()
+def _rowwise_adagrad(t, acc, slot, mine, g, opt_cfg) -> None:
+    """Row-wise Adagrad in place on the rows `slot` of table t and its
+    accumulator acc, for the entries where `mine` (None: all), in the
+    reference's expression order: acc[slot] += mean(g^2), then
+    t[slot] -= lr / sqrt(max(acc[slot] + eps, 1e-30)) * g.  The entries
+    not mine add -0.0 to row 0, which changes no value (the reference
+    drops them)."""
+    ms = torch.mean(torch.square(g), dim=-1)
+    if mine is not None:
+        slot = torch.where(mine, slot, torch.zeros_like(slot))
+        ms = torch.where(mine, ms, torch.full_like(ms, -0.0))
+    acc.index_add_(0, slot, ms)
+    scale = opt_cfg.table_lr / torch.sqrt(
+        torch.clamp(acc[slot] + opt_cfg.table_eps, min=1e-30))
+    upd = -(scale[:, None] * g).to(t.dtype)
+    if mine is not None:
+        upd = torch.where(mine[:, None], upd, torch.full_like(upd, -0.0))
+    t.index_add_(0, slot, upd)
+
+
+def dlrm_sparse_update_sharded(tables, accs, sparse_ids, g_emb,
+                               c: DLRMConfig, opt_cfg, mesh):
+    """Row-wise Adagrad applied rank-locally (interleaved row placement),
+    IN PLACE on this rank's tables and accumulators (every rank calls it).
+
+    All-gather the (ids, grad) updates over the mesh's data axis once (the
+    irreducible data-parallel volume; the gradients travel as bf16, as in
+    the reference), then each model rank applies exactly its own rows of
+    each sharded field, and every rank all of each unsharded field's:
+    no further collectives.  `accs`: {"t{i}": {"acc": (rows_loc,)}}.
+    Returns (tables, accs)."""
+    data = mesh.get_group("data")
+    _, n_model, col = _model_axis(mesh)
+    # tiled: every data rank's rows in rank order, as the reference's
+    # all_gather(..., tiled=True); gradients as bf16 on the wire (as
+    # bytes: gloo moves no 16-bit integers)
+    ids_g = routing.all_gather(sparse_ids.long(), data).flatten(0, 1)
+    g_g = routing.all_gather(g_emb.to(torch.bfloat16).view(torch.uint8),
+                             data).flatten(0, 1).view(torch.bfloat16).float()
+    for i, sharded in enumerate(field_sharded(c)):
+        key = f"t{i}"
+        ids_i = ids_g[:, i]
+        if sharded:
+            mine = (ids_i % n_model) == col
+            slot = torch.div(ids_i, n_model, rounding_mode="floor")
+        else:
+            mine, slot = None, ids_i
+        _rowwise_adagrad(tables[key], accs[key]["acc"], slot, mine,
+                         g_g[:, i], opt_cfg)
+    return tables, accs
+
+
+def dlrm_train_step_sparse(params, opt_state, batch, opt_step, seed,
+                           c: DLRMConfig, opt_cfg, dense_update, mesh=None):
+    """Sparse-table train step: embedding gradients never densify.
+
+    The autograd of a lookup makes a (rows, D) gradient per table.  Here
+    tables are looked up without gradient; the loss is differentiated
+    with respect to the GATHERED rows (B, 26, D) and the dense leaves, and
+    row-wise Adagrad updates exactly the touched rows (the production TBE
+    pattern).  Memory traffic scales with B * 26 * D instead of
+    sum(rows) * D.  `dense_update`: `make_optimizer`'s update of the
+    bot / top leaves (in place).  With `c.lookup == "a2a"` and a `mesh`,
+    the lookup and the update are the routed, row-sharded ones.  `seed`
+    is unused, as in the reference.  Tables and accumulators are updated
+    in place; returns (params, opt_state, {"loss", **dense stats})."""
+    tables = params["tables"]
+    routed = c.lookup == "a2a" and mesh is not None
+    with torch.no_grad():
+        embs = (dlrm_lookup_a2a(tables, batch["sparse"], c, mesh) if routed
+                else dlrm_lookup(tables, batch["sparse"], c))
+    dense_p = {"bot": params["bot"], "top": params["top"]}
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in flatten(dense_p).items()}
+    embs.requires_grad_()
+    with torch.enable_grad():
+        loss = _bce(dlrm_apply_from_emb(unflatten(leaves), batch["dense"],
+                                        embs, c), batch["label"])
+        *g_dense, g_emb = torch.autograd.grad(
+            loss, list(leaves.values()) + [embs])
+    g_dense = unflatten(dict(zip(leaves, g_dense)))
+    new_dense, new_dense_state, stats = dense_update(
+        g_dense, opt_state["dense"], dense_p, opt_step)
+    if routed:
+        dlrm_sparse_update_sharded(tables, opt_state["tables"],
+                                   batch["sparse"], g_emb, c, opt_cfg, mesh)
+    else:
+        ids = batch["sparse"].long()
+        for i in range(c.n_sparse):
+            key = f"t{i}"
+            _rowwise_adagrad(tables[key], opt_state["tables"][key]["acc"],
+                             ids[:, i], None, g_emb[:, i].float(), opt_cfg)
+    return ({"tables": tables, **new_dense},
+            {"dense": new_dense_state, "tables": opt_state["tables"]},
+            {"loss": loss.detach(), **stats})
 
 
 # --------------------------------------------------------------------------

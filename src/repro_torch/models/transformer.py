@@ -29,9 +29,12 @@ autograd records, by `cfg.remat`:
     API is missing, "dots" runs as "full".
 Values do not depend on the policy.
 
-`moe.impl == "a2a"` runs `moe_apply`, as the reference's `_moe_shardmap`
-does without a mesh; its mesh branch and the `sharding.constrain` calls
-come with the sharding slice.
+`moe.impl == "a2a"` goes through `_moe_shardmap`: inside
+`sharding.use_rules(rules, mesh)` with a "model" mesh axis, tokens stay
+on their rank and `moe.moe_apply_a2a` routes them to the experts of the
+model group; with no such mesh it runs `moe_apply`, as the reference
+does.  The reference's `sharding.constrain` calls are left out (GSPMD
+placement waits for the DTensor slice).
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -207,15 +212,44 @@ def _layer(p, x, positions, cfg: LMConfig, kind: str, cache=None,
     h = rms_norm(x, p["ln_mlp"], unit_offset=cfg.norm_unit_offset)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
-        # impl "a2a" without a mesh is this same call (see the docstring)
-        t, d = h.shape[0] * h.shape[1], h.shape[2]
-        f, aux = moe_lib.moe_apply(p["moe"], h.reshape(t, d), cfg.moe)
-        f = f.reshape(x.shape)
+        if cfg.moe.impl == "a2a":
+            f, aux = _moe_shardmap(p["moe"], h, cfg)
+        else:
+            t, d = h.shape[0] * h.shape[1], h.shape[2]
+            f, aux = moe_lib.moe_apply(p["moe"], h.reshape(t, d), cfg.moe)
+            f = f.reshape(x.shape)
     else:
         f = mlp_apply(p["mlp"], h, cfg.activation)
     if cfg.post_norms:
         f = rms_norm(f, p["ln_mlp_post"], unit_offset=cfg.norm_unit_offset)
     return x + f, new_cache, aux
+
+
+def _moe_shardmap(params, h, cfg: LMConfig):
+    """Manual expert parallelism around the MoE FFN.
+
+    With a mesh holding a "model" axis active (`sharding.use_rules`),
+    this rank's tokens stay here and the expert leaves gate / up / down
+    are cut to this rank's E / model slice (the reference's
+    P("model", ...) in_specs over the whole leaves every rank holds);
+    routing is one pair of capacity-bounded all-to-alls over the model
+    axis's group (`moe_apply_a2a`), and the aux loss is averaged over the
+    whole mesh (the world group).  With no mesh it runs `moe_apply`."""
+    ctx = sharding.current_ctx()
+    if ctx is None or "model" not in sharding.mesh_shape(ctx[1]):
+        t, d = h.shape[0] * h.shape[1], h.shape[2]
+        f, aux = moe_lib.moe_apply(params, h.reshape(t, d), cfg.moe)
+        return f.reshape(h.shape), aux
+    mesh = ctx[1]
+    n_model = mesh.size(mesh.mesh_dim_names.index("model"))
+    e_loc = cfg.moe.n_experts // n_model
+    lo = mesh.get_local_rank("model") * e_loc
+    p_loc = {k: v[lo:lo + e_loc] if k in ("gate", "up", "down") else v
+             for k, v in params.items()}
+    y, aux = moe_lib.moe_apply_a2a(p_loc, h.reshape(-1, h.shape[-1]),
+                                   cfg.moe, group=mesh.get_group("model"),
+                                   mean_group=dist.group.WORLD)
+    return y.reshape(h.shape), aux
 
 
 def _group_fwd(block, x, positions, cfg: LMConfig, caches=None,

@@ -13,8 +13,9 @@ the comparison at the full-size shapes.  The tiering cases hold the
 tier ops to their plain versions, tiered services to untiered ones and
 to the plain engine, and the hot-only epoch to no synchronize.  The
 model cases (the recommenders, the LM scaffold's five smoke configs,
-SASRec / BERT4Rec) have no kernel: they hold the card to the CPU within
-stated float32 tolerances.
+SASRec / BERT4Rec, DimeNet) have no kernel: they hold the card to the CPU
+within stated float32 tolerances; the routed exchange at world size 1 on
+NCCL is held to its unrouted forms.
 """
 import numpy as np
 import pytest
@@ -1723,3 +1724,173 @@ def test_topk_over_catalog_ties_on_the_card(cuda):
     ids = got[1][1].numpy()
     assert (ids[:, :2] == [5, 65_536]).all() and (ids[:, 2:] == 999_999).all()
     assert _rel(got[0][0], got[1][0]) <= LM_FWD
+
+
+# --------------------------------------------------------------------------
+# DimeNet and the routed exchange card against CPU (no kernel on either)
+# --------------------------------------------------------------------------
+
+# DimeNet's segment sums add with atomics on the card (index_add), in
+# index order on the CPU: outputs and losses within GNN_FWD, gradients
+# within GNN_GRAD (normwise), the tolerances the CPU tests hold the port
+# to the JAX package with
+GNN_FWD = 1e-5
+GNN_GRAD = 1e-4
+
+
+def _gnn_case(readout: str):
+    """(config, numpy batch) of a DimeNet smoke case: batched molecules
+    (graph readout) or a synthetic graph with features (node readout)."""
+    import dataclasses
+    from repro_torch.configs import dimenet as dcfg
+    from repro_torch.data import graph
+    rng = np.random.default_rng(3)
+    if readout == "graph":
+        cfg = dataclasses.replace(dcfg.SMOKE, readout="graph")
+        m = graph.batched_molecules(8, 12, 24, seed=0)
+        kj, ji, valid = graph.build_triplets(m["edge_src"], m["edge_dst"],
+                                             96, 4, rng)
+        b = {k: m[k] for k in ("pos", "atom_z", "edge_src", "edge_dst",
+                               "graph_id", "n_graphs")}
+        b["target"] = rng.normal(size=8).astype(np.float32)
+    else:
+        cfg = dataclasses.replace(dcfg.SMOKE, readout="node", d_feat=8,
+                                  n_targets=5)
+        g = graph.synthetic_graph(256, 2048, seed=1)
+        src = g.indices.astype(np.int32)
+        dst = np.repeat(np.arange(256), np.diff(g.indptr)).astype(np.int32)
+        kj, ji, valid = graph.build_triplets(src, dst, 256, 3, rng)
+        b = {"pos": rng.normal(size=(256, 3)).astype(np.float32),
+             "x_feat": rng.normal(size=(256, 8)).astype(np.float32),
+             "edge_src": src, "edge_dst": dst,
+             "label": rng.integers(0, 5, 256).astype(np.int32)}
+    b.update(t_kj=kj, t_ji=ji, t_mask=valid.astype(np.float32),
+             edge_mask=np.ones(len(b["edge_src"]), np.float32))
+    return cfg, b
+
+
+def _gnn_params(cfg) -> dict:
+    """Parameters with nonzero output heads (every leaf gets a gradient)."""
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import params as mp
+    rng = np.random.default_rng(4)
+    return mp.unflatten({
+        k: (rng.normal(size=s.shape) / np.sqrt(s.shape[-2])).astype(
+            np.float32) for k, s in mp.flatten(dn.param_specs(cfg)).items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("readout", ["graph", "node"])
+def test_dimenet_card_equals_cpu(cuda, no_tf32, readout):
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import params as mp
+    cfg, b = _gnn_case(readout)
+    p0 = _gnn_params(cfg)
+    out = []
+    for dev in ("cuda", "cpu"):
+        batch = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                 else v for k, v in b.items()}
+        leaves = {k: v.requires_grad_() for k, v in mp.flatten(
+            convert.params_from_numpy(p0, dev)).items()}
+        loss, _ = dn.loss_fn(mp.unflatten(leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            y = dn.apply(mp.unflatten(leaves), batch, cfg)
+        out.append((y, loss.detach(), dict(zip(leaves, grads))))
+    (yc, lc, gc), (yh, lh, gh) = out
+    assert yc.device.type == "cuda" and bool(torch.isfinite(yc).all())
+    assert _rel(yc, yh) <= GNN_FWD and _rel(lc, lh) <= GNN_FWD
+    for k, g in gc.items():
+        assert _rel(g, gh[k]) <= GNN_GRAD, k
+
+
+@pytest.mark.cuda
+def test_routed_functions_world_one_on_nccl(cuda, no_tf32, tmp_path):
+    """At world size 1 on NCCL the routed forms equal the unrouted ones:
+    `route` / `send_back` (rows past the capacity come back zero), the
+    MoE all-to-all and `moe_apply` (float32, no token dropped), the int8
+    all-reduce and `dequantize(quantize(g))`, the routed DLRM lookup and
+    `dlrm_lookup`, the routed sparse step and the unrouted one, and
+    DimeNet's `loss_fn_sharded` and `loss_fn`."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import routing
+    from repro_torch.data import recsys_stream
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import moe
+    from repro_torch.models import params as mp
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import compression, optimizer
+    mesh_lib.init_group(1, 0, backend="nccl",
+                        init_file=str(tmp_path / "store"))
+    try:
+        mesh = mesh_lib.make_host_mesh(1)
+        rng = np.random.default_rng(9)
+        x = torch.from_numpy(rng.normal(size=(300, 4)).astype(np.float32)
+                             ).to(cuda)
+        dest = torch.zeros(300, dtype=torch.int64, device=cuda)
+        recv, rt = routing.route(x, dest, 256)
+        back = routing.send_back(recv * 2.0, rt)
+        assert int(rt.kept.sum()) == 256
+        assert torch.equal(back[rt.kept], x[rt.kept] * 2.0)
+        assert not bool(back[~rt.kept].any())
+
+        c = moe.MoEConfig(d_model=64, n_experts=8, top_k=2, d_ff_expert=32,
+                          n_shared=1, norm_topk=True, capacity_factor=4.0,
+                          wire_capacity_factor=4.0)
+        p = mp.init_tree(moe.moe_specs(c), 0, cuda)
+        xt = torch.randn(512, 64, device=cuda)
+        y_a, aux_a = moe.moe_apply_a2a(p, xt, c)
+        y, aux = moe.moe_apply(p, xt, c)
+        assert float((y_a - y).abs().max()) < 1e-5
+        assert float((aux_a - aux).abs()) < 1e-6
+
+        g = torch.randn(10_000, device=cuda) * 3.0
+        want = compression.dequantize(*compression.quantize(g), g.shape)
+        assert torch.equal(compression.compressed_allreduce_mean(g), want)
+
+        dc = rs.DLRMConfig(embed_dim=16, bot_mlp=(13, 32, 16),
+                           top_mlp=(64, 1), table_sizes=(20_480,) * 3 + (60,),
+                           lookup="a2a")
+        b = {k: torch.from_numpy(v).to(cuda) for k, v in
+             recsys_stream.dlrm_batch(0, 0, 1, global_batch=256,
+                                      table_sizes=list(dc.table_sizes)
+                                      ).items()}
+        params = mp.init_tree(rs.dlrm_specs(dc), 0, cuda)
+        assert torch.equal(rs.dlrm_lookup_a2a(params["tables"], b["sparse"],
+                                              dc, mesh),
+                           rs.dlrm_lookup(params["tables"], b["sparse"], dc))
+        ocfg = optimizer.OptimizerConfig(table_lr=0.1)
+        _, dense_update = optimizer.make_optimizer(
+            ocfg, label_fn=lambda path: "dense")
+        runs = []
+        for use_mesh in (mesh, None):
+            pr = {k: {n: t.clone() for n, t in v.items()}
+                  for k, v in params.items()}
+            st = {"dense": {k: {n: {"mu": torch.zeros_like(t),
+                                    "nu": torch.zeros_like(t)}
+                                for n, t in pr[k].items()}
+                            for k in ("bot", "top")},
+                  "tables": {k: {"acc": torch.zeros(t.shape[0],
+                                                    device=cuda)}
+                             for k, t in pr["tables"].items()}}
+            pr, st, m = rs.dlrm_train_step_sparse(pr, st, b, 0, 0, dc, ocfg,
+                                                  dense_update, use_mesh)
+            runs.append((pr, m["loss"]))
+        assert torch.equal(runs[0][1], runs[1][1])
+        for k, t in runs[0][0]["tables"].items():
+            # bf16 gradients on the routed path's wire
+            assert _rel(t, runs[1][0]["tables"][k]) <= 1e-2, k
+
+        cfg, gb = _gnn_case("node")
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in gb.items()}
+        gp = convert.params_from_numpy(_gnn_params(cfg), cuda)
+        ls, _ = dn.loss_fn_sharded(gp, batch,
+                                   dataclasses.replace(cfg,
+                                                       local_triplets=True))
+        lw, _ = dn.loss_fn(gp, batch, cfg)
+        assert _rel(ls, lw) <= GNN_FWD
+    finally:
+        dist.destroy_process_group()

@@ -69,7 +69,10 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.configs.gemma2_27b",
               "repro_torch.configs.llama4_scout",
               "repro_torch.configs.deepseek_v2_lite",
-              "repro_torch.configs.sasrec", "repro_torch.configs.bert4rec"):
+              "repro_torch.configs.sasrec", "repro_torch.configs.bert4rec",
+              "repro_torch.data.graph", "repro_torch.models.dimenet",
+              "repro_torch.configs.dimenet", "repro_torch.routing",
+              "repro_torch.sharding", "repro_torch.train.compression"):
         assert m in res["modules"]
 
 

@@ -269,8 +269,8 @@ def test_registry():
     arch = treg.get("paper-sketch")
     assert arch is treg.get("paper_sketch") and arch.family == "paper"
     assert arch.cfg is tpaper.CFG and arch.shapes == {}
-    # every reference arch but dimenet, which comes with the graph slice
-    assert set(treg.load_all()) == set(jreg.load_all()) - {"dimenet"}
+    # every reference arch
+    assert set(treg.load_all()) == set(jreg.load_all())
     with pytest.raises(KeyError, match="unknown arch"):
         treg.get("no-such-arch")
     for name in ("LM_SHAPES", "RECSYS_SHAPES", "GNN_SHAPES"):

@@ -338,8 +338,8 @@ def test_configs_field_for_field_and_registry():
             assert (dataclasses.asdict(getattr(tmod, attr))
                     == dataclasses.asdict(getattr(jmod, attr)))
     archs = treg.load_all()
-    # every reference arch but dimenet, which comes with the graph slice
-    assert set(archs) == set(jreg.load_all()) - {"dimenet"}
+    # every reference arch
+    assert set(archs) == set(jreg.load_all())
     for name in ("dlrm-mlperf", "two-tower-retrieval"):
         t, j = treg.get(name), jreg.get(name)
         assert (t.family, t.shapes, t.skip_shapes, t.notes) \

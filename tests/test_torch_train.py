@@ -11,6 +11,10 @@
     retry and skip on a non-finite loss; a checkpoint the JAX loop wrote
     restored and continued by the port loop, and the leaf paths of
     `TrainState.tree()`;
+  * `models/recsys.dlrm_train_step_sparse` (the unsharded branch, at
+    tests/test_perf_paths.py:51's config, three steps): losses, dense
+    parameters and moments, tables and row accumulators beside the
+    reference's, table rows no id touched exactly unchanged;
   * `examples/recsys_admission_torch.py` beside the reference example
     run as a subprocess (`--steps 8 --batch 256`) from the reference's
     initial weights.
@@ -281,6 +285,45 @@ def test_five_train_steps_match_reference(accum):
     back = convert.train_state_to_numpy(tstate)
     assert back["step"] == 5 and back["extras"] is None
     np.testing.assert_array_equal(back["rng"], np.asarray(jstate.rng))
+
+
+def test_dlrm_train_step_sparse_matches_reference():
+    jc = jrs.DLRMConfig(embed_dim=8, bot_mlp=(13, 16, 8), top_mlp=(16, 1),
+                        table_sizes=tuple([64] * 4), sparse_update=True)
+    tc_ = trs.DLRMConfig(**dataclasses.asdict(jc))
+    ocfg = topt.OptimizerConfig(table_lr=0.1)
+    jparams0 = jparams.init_tree(jrs.dlrm_specs(jc), jax.random.PRNGKey(0))
+    zeros2 = lambda x: {"mu": jnp.zeros_like(x), "nu": jnp.zeros_like(x)}  # noqa
+    jstate = {"dense": {"bot": jax.tree.map(zeros2, jparams0["bot"]),
+                        "top": jax.tree.map(zeros2, jparams0["top"])},
+              "tables": {f"t{i}": {"acc": jnp.zeros(64)} for i in range(4)}}
+    tp = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams0), "cpu")
+    ts = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jstate), "cpu")
+    _, jdense = jopt.make_optimizer(_jcfg(ocfg), label_fn=lambda p: "dense")
+    _, tdense = topt.make_optimizer(ocfg, label_fn=lambda p: "dense")
+    jp = jparams0
+    jstep = jax.jit(jrs.dlrm_train_step_sparse, static_argnums=(5, 6, 7))
+    touched = np.zeros((4, 64), bool)
+    for step, b in _batches(jc, 3, 1, batch=16):
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        jp, jstate, jm = jstep(jp, jstate, jb, jnp.asarray(step),
+                               jnp.asarray(0), jc, _jcfg(ocfg), jdense)
+        tp, ts, tm = trs.dlrm_train_step_sparse(
+            tp, ts, {k: _t(v) for k, v in b.items()}, step, 0, tc_, ocfg,
+            tdense)
+        assert set(tm) == set(jm)
+        assert rel_err(tm["loss"], jm["loss"]) <= STEPS
+        for i in range(4):
+            touched[i, b["sparse"][:, i]] = True
+    _close_trees(tp, jp, STEPS)
+    _close_trees(ts, jstate, STEPS)
+    start = jax.tree_util.tree_map(np.asarray, jparams0["tables"])
+    for i in range(4):
+        moved = (tp["tables"][f"t{i}"].numpy() != start[f"t{i}"]).any(axis=1)
+        assert np.array_equal(moved, touched[i]), i
+        assert (ts["tables"][f"t{i}"]["acc"].numpy()[~touched[i]] == 0).all()
 
 
 def test_train_state_tree_has_the_reference_leaf_paths(tmp_path):

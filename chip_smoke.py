@@ -250,6 +250,28 @@ exit, no result line) if anything disagrees:
                 widths on 26 tables of 1,049,600 rows (13.01 GiB), 12
                 steps of 65,536: untouched rows bit-identical, step ms
                 and peak, one step card against CPU;
+ 17. GSPMD placement and the dry run -- after 16, before 14, TF32 off, no
+                kernel on its path: (a) `launch/train.main --full --mesh`
+                (qwen2-0.5b at its full config on a (1, 1) ("data",
+                "model") mesh over a one-rank NCCL group, parameters
+                placed by `tree_shardings`, the steps on DTensors) against
+                `launch/train.main --full` unmeshed, both 5 steps of
+                phase 15's 4 x 4,096 from the same seed and batches:
+                losses within 1e-5 relative, parameters within 1e-4
+                normwise, ms a step beside phase 15's; (b)
+                `launch/serve.main --mesh` == `launch/serve.main`, token
+                for token; (c) in a subprocess that never touches the
+                card, `launch/dryrun.run_cell` of one cell of each family
+                (qwen2-0.5b decode_32k, dlrm-mlperf serve_p99, dimenet
+                molecule: DRYRUN_CELLS) on both production meshes, as
+                rank 0 of a fake group of 256 / 512, each ok; (d) in the
+                same subprocess, the H100 roofline at world size 1
+                (`roofline/op_stats`
+                on fake tensors) of phase 15's qwen2-0.5b step, phase
+                16's DimeNet minibatch_lg step (its first subgraph's
+                sizes) and phase 14's DLRM step: each bound, held against
+                its phase's measured median step after phase 14, must
+                not exceed it (the ratios are printed);
  12. profiles -- last, since a torch.profiler session slows the process's
                 later host work: one tracked and one windowed epoch
                 (device busy and idle share, synchronizes and copies
@@ -5026,6 +5048,290 @@ def gnn_phase(dev) -> tuple:
     return launches, res, drive
 
 
+# ---- phase 17 of slice 14: GSPMD placement on DTensor, the dry run --------
+
+P17_LOSS_TOL = 1e-5        # meshed against unmeshed losses, relative
+P17_PARAM_TOL = 1e-4       # parameters after the steps, normwise
+# one cell a family, each the reference's baseline cell
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k"),
+                ("dlrm-mlperf", "serve_p99"),
+                ("dimenet", "molecule"))
+DRYRUN_TIMEOUT = 900       # seconds for the subprocess of (c) and (d)
+
+
+def world1_bound(specs, batch_specs, loss, opt_cfg, label_fn=None) -> dict:
+    """The H100 roofline of one full train step (gradients and the
+    optimizer's update) at world size 1, counted on fake tensors."""
+    from repro_torch.launch import cells
+    from repro_torch.models.params import P, abstract_tree
+    from repro_torch.roofline import op_stats
+    from repro_torch.roofline.analyze import analyze
+    with op_stats.counting() as st:
+        params, opt = cells._abstract_state(specs, None, None, label_fn)
+        step = cells._train_wrapper(loss, opt_cfg, label_fn)
+        step(params, opt, abstract_tree(batch_specs),
+             abstract_tree(P((), None, "zeros", torch.int32)), None)
+        del params, opt
+    r = analyze(st, 1)
+    terms = {"compute": r.t_compute, "memory": r.t_memory}
+    return {"bound_ms": max(terms.values()) * 1e3, "bound_by": r.bottleneck,
+            "t_compute_ms": r.t_compute * 1e3, "t_memory_ms": r.t_memory * 1e3,
+            "flops": r.flops, "bytes": r.bytes_accessed,
+            "peak_bytes": r.peak_memory_bytes}
+
+
+def world1_bounds(gnn: dict) -> dict:
+    """(d)'s three bounds: phase 15's qwen2-0.5b step, phase 16's DimeNet
+    minibatch_lg step at `gnn`'s sizes and config, phase 14's DLRM step."""
+    import dataclasses
+    from repro_torch.configs import dimenet as dn_cfg
+    from repro_torch.configs import dlrm_mlperf, qwen2_05b
+    from repro_torch.core import admission as adm
+    from repro_torch.models import dimenet as dn
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import P
+    from repro_torch.train.optimizer import OptimizerConfig, default_label_fn
+    i32, f32 = torch.int32, torch.float32
+    out = {}
+    cfg = qwen2_05b.CFG
+    out["qwen2_train"] = world1_bound(
+        tf.param_specs(cfg),
+        {k: P((LM_BATCH, LM_SEQ), None, "zeros", i32)
+         for k in ("tokens", "targets")},
+        lambda p, b, r: tf.loss_fn(p, b, cfg),
+        OptimizerConfig(peak_lr=LM_LR, warmup_steps=0,
+                        decay_steps=LM_STEPS))
+    gcfg = dataclasses.replace(dn_cfg.CFG, **gnn["config"])
+    n, e, t = gnn["nodes"], gnn["edges"], gnn["triplets"]
+    out["dimenet_minibatch_lg"] = world1_bound(
+        dn.param_specs(gcfg),
+        {"pos": P((n, 3), None, "zeros", f32),
+         "x_feat": P((n, gcfg.d_feat), None, "zeros", f32),
+         "label": P((n,), None, "zeros", i32),
+         "label_mask": P((n,), None, "zeros", f32),
+         "edge_src": P((e,), None, "zeros", i32),
+         "edge_dst": P((e,), None, "zeros", i32),
+         "edge_mask": P((e,), None, "zeros", f32),
+         "t_kj": P((t,), None, "zeros", i32),
+         "t_ji": P((t,), None, "zeros", i32),
+         "t_mask": P((t,), None, "zeros", f32)},
+        lambda p, b, r: dn.loss_fn(p, b, gcfg),
+        OptimizerConfig(warmup_steps=0, decay_steps=GNN_STEPS))
+    aspec = adm.AdmissionSpec()
+    rcfg = dataclasses.replace(
+        dlrm_mlperf.CFG,
+        table_sizes=(aspec.n_fallback + aspec.table_rows,) * 26)
+    out["dlrm_train"] = world1_bound(
+        rs.dlrm_specs(rcfg),
+        {"dense": P((REC_BATCH, rcfg.n_dense), None, "zeros", f32),
+         "sparse": P((REC_BATCH, rcfg.n_sparse), None, "zeros", i32),
+         "label": P((REC_BATCH,), None, "zeros", f32)},
+        lambda p, b, r: rs.dlrm_loss(p, b, rcfg),
+        OptimizerConfig(peak_lr=2e-3, warmup_steps=2, decay_steps=REC_STEPS),
+        default_label_fn)
+    return out
+
+
+def dryrun_child(spec_path: str, out_path: str) -> None:
+    """Phase 17 (c) and (d)'s bounds, in a process of its own (a process
+    holds one fake group) that never touches the card."""
+    from repro_torch.launch import dryrun
+    with open(spec_path) as f:
+        spec = json.load(f)
+    res = {"cells": []}
+    for arch, shape in DRYRUN_CELLS:
+        for multi_pod in (False, True):
+            rec = dryrun.run_cell(arch, shape, multi_pod, spec["out_dir"],
+                                  force=True)
+            row = {k: rec.get(k) for k in ("arch", "shape", "mesh", "ok",
+                                           "error", "lower_s", "compile_s")}
+            if rec["ok"]:
+                ro = rec["roofline"]
+                row.update(bottleneck=ro["bottleneck"], t_max_ms=1e3 * max(
+                    ro["t_compute"], ro["t_memory"], ro["t_collective"]),
+                    peak_bytes=ro["peak_memory_bytes"])
+            res["cells"].append(row)
+    t0 = time.perf_counter()
+    res["bounds"] = world1_bounds(spec["gnn"])
+    res["bounds_s"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def start_dryrun_child(tmp: str, gnn: dict):
+    """The subprocess of (c) and (d), started now and joined by
+    `join_dryrun_child`: no card (CUDA_VISIBLE_DEVICES empty)."""
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"out_dir": os.path.join(tmp, "dryrun"), "gnn": gnn}, f)
+    root = str(pathlib.Path(__file__).resolve().parent)
+    code = ("import sys; sys.path[:0] = [{r!r}, {s!r}]; import chip_smoke; "
+            "chip_smoke.dryrun_child({a!r}, {b!r})").format(
+        r=root, s=os.path.join(root, "src"), a=spec,
+        b=os.path.join(tmp, "out.json"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    log_f = open(os.path.join(tmp, "child.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                            stdout=log_f, stderr=subprocess.STDOUT)
+    return proc, log_f
+
+
+def join_dryrun_child(proc, log_f, tmp: str) -> dict:
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    log_f.close()
+    if rc != 0:
+        with open(os.path.join(tmp, "child.log")) as f:
+            fail(f"placement (c)/(d): the dry-run subprocess ended {rc}: "
+                 f"{f.read()[-3000:]}")
+    with open(os.path.join(tmp, "out.json")) as f:
+        return json.load(f)
+
+
+def norm_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
+
+
+def placed_train(dev) -> dict:
+    """(a): `launch/train.main --full` on a (1, 1) mesh against unmeshed."""
+    import gc
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.params import flatten
+    args = ["--arch", "qwen2-0.5b", "--full", "--steps", str(LM_STEPS),
+            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--lr",
+            str(LM_LR), "--seed", str(SEED)]
+    res = {}
+    plain, meshed = {}, {}
+    base = fresh_peak()
+    state, _ = ttrain.main(args, record=plain)
+    res["plain_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    want = flatten(state.params)
+    del state
+    gc.collect()
+    base = fresh_peak()
+    state, _ = ttrain.main(args + ["--mesh"], record=meshed)
+    res["mesh_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    got = {k: v.full_tensor() for k, v in flatten(state.params).items()}
+    mesh = next(iter(flatten(state.params).values())).device_mesh
+    res["mesh"] = {"shape": list(mesh.shape),
+                   "names": list(mesh.mesh_dim_names)}
+    del state
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(meshed["loss"],
+                                                       plain["loss"]))
+    param_err = max(norm_rel(got[k], want[k]) for k in want)
+    del got, want
+    gc.collect()
+    res.update(plain=plain, meshed=meshed, loss_rel_err=loss_err,
+               param_norm_rel_err=param_err,
+               plain_step_ms_median=float(np.median(plain["step_ms"][1:])),
+               mesh_step_ms_median=float(np.median(meshed["step_ms"][1:])))
+    if not (len(meshed["loss"]) == LM_STEPS and loss_err <= P17_LOSS_TOL
+            and param_err <= P17_PARAM_TOL):
+        fail(f"placement (a): meshed training departs from unmeshed: losses "
+             f"{meshed['loss']} against {plain['loss']} ({loss_err:.3e}), "
+             f"parameters {param_err:.3e} normwise")
+    return res
+
+
+def placement_phase(dev, lm_report: dict, gnn_report: dict) -> tuple:
+    """Phase 17: GSPMD placement on DTensor (a)-(b) on the card, the dry
+    run and the world-size-1 bounds (c)-(d) in a subprocess; TF32 off.
+    Returns (kernel launches, the numbers it reports).  The bounds are
+    held against phase 14's DLRM step by `check_bounds` after phase 14."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.kernels import sketch as ksk
+    from repro_torch.launch import serve as tserve
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.synchronize()
+    ksk.reset_kernel_launches()
+    tmp = tempfile.mkdtemp(prefix="cml_p17_")
+    mb = gnn_report["regimes"]["minibatch_lg"]
+    gnn = {"config": mb["config"], "nodes": mb["nodes"],
+           "edges": mb["edges"], "triplets": mb["triplets"]}
+    proc, log_f = start_dryrun_child(tmp, gnn)
+    try:
+        res = {"train": placed_train(dev)}
+        tr = res["train"]
+        log(f"placement (a): qwen2-0.5b on a {tr['mesh']['shape']} "
+            f"{tr['mesh']['names']} mesh, {LM_STEPS} steps of {LM_BATCH} x "
+            f"{LM_SEQ}: losses {[round(x, 5) for x in tr['meshed']['loss']]} "
+            f"against unmeshed {[round(x, 5) for x in tr['plain']['loss']]} "
+            f"(max rel {tr['loss_rel_err']:.2e}), parameters "
+            f"{tr['param_norm_rel_err']:.2e} apart normwise; ms a step "
+            f"meshed {tr['mesh_step_ms_median']:.1f} "
+            f"({[round(x, 1) for x in tr['meshed']['step_ms']]}), unmeshed "
+            f"{tr['plain_step_ms_median']:.1f}, phase 15's "
+            f"{lm_report['qwen2']['train']['step_ms_median']:.1f}; peak "
+            f"meshed {tr['mesh_peak_bytes'] / 2**30:.2f} GiB, unmeshed "
+            f"{tr['plain_peak_bytes'] / 2**30:.2f} GiB")
+        serve_args = ["--arch", "qwen2-0.5b", "--seed", str(SEED)]
+        _, _, want = tserve.main(serve_args)
+        _, _, got = tserve.main(serve_args + ["--mesh"])
+        if not torch.equal(got.cpu(), want.cpu()):
+            fail(f"placement (b): meshed serve tokens {got.tolist()} != "
+                 f"{want.tolist()}")
+        res["serve"] = {"tokens": list(got.shape), "equal": True}
+        log(f"placement (b): launch.serve --mesh == launch.serve, "
+            f"{tuple(got.shape)} tokens")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    except BaseException:  # a failed check stops the subprocess too
+        proc.kill()
+        raise
+    child = join_dryrun_child(proc, log_f, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    bad = [c for c in child["cells"] if not c["ok"]]
+    if bad:
+        fail(f"placement (c): dry-run cells failed: {bad}")
+    res["dryrun"] = child["cells"]
+    log(f"placement (c): dry-run cells on the fake group: "
+        + "; ".join(f"{c['arch']}/{c['shape']}/{c['mesh']} ok ({c['lower_s']} + {c['compile_s']} s, "
+                    f"max term "
+                    f"{c['t_max_ms']:.3f} ms, {c['bottleneck']})"
+                    for c in child["cells"]))
+    res["bounds"] = child["bounds"]
+    res["bounds_s"] = child["bounds_s"]
+    measured = {
+        "qwen2_train": lm_report["qwen2"]["train"]["step_ms_median"],
+        "dimenet_minibatch_lg": mb["step_ms_steady"]}
+    check_bounds(res, measured)
+    launches = dict(ksk.kernel_launches())
+    res["seconds"] = time.perf_counter() - t0
+    log(f"placement phase: {res['seconds']:.1f} s; launches {launches} (no "
+        f"kernel lies on this path)")
+    return launches, res
+
+
+def check_bounds(res: dict, measured: dict) -> None:
+    """(d): each world-size-1 roofline bound against its measured step;
+    a bound above the time measured means the cost model is wrong."""
+    for name, ms in measured.items():
+        b = res["bounds"][name]
+        b["measured_ms"] = ms
+        b["measured_over_bound"] = ms / b["bound_ms"]
+        log(f"placement (d): {name} bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']}: compute {b['t_compute_ms']:.3f}, memory "
+            f"{b['t_memory_ms']:.3f}; {b['flops']:.3e} FLOPs, "
+            f"{b['bytes']:.3e} B) against {ms:.3f} ms measured: ratio "
+            f"measured / bound {b['measured_over_bound']:.3f}")
+        if b["bound_ms"] > ms:
+            fail(f"placement (d): the roofline bound of {name} "
+                 f"({b['bound_ms']:.3f} ms) exceeds its measured step "
+                 f"({ms:.3f} ms)")
+
+
 def main(device: str = "cuda") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -5448,8 +5754,14 @@ def main(device: str = "cuda") -> None:
     # Before phase 14 too (its drives keep 13 GiB alive for phase 12).
     gnn_launches, gnn_report, gnn_drive = gnn_phase(dev)
 
+    # ---- 17. GSPMD placement on DTensor, the dry run ------------------------
+    # After 16 (its minibatch_lg sizes feed the bounds), before 14.
+    p17_launches, p17_report = placement_phase(dev, lm_report, gnn_report)
+
     # ---- 14. the sketch-gated recommender path -----------------------------
     rec_launches, rec_report, rec_drives = recsys_phase(dev)
+    check_bounds(p17_report, {
+        "dlrm_train": rec_report["train"]["train_step_ms"]["median"]})
 
     # ---- 12. profiles -------------------------------------------------------
     # Last: a torch.profiler session leaves this process's later host work
@@ -5560,7 +5872,7 @@ def main(device: str = "cuda") -> None:
                     + adm_launches[name] + tier_launches[name]
                     + alg_launches[name] + paper_launches[name]
                     + rec_launches[name] + lm_launches[name]
-                    + gnn_launches[name])
+                    + gnn_launches[name] + p17_launches[name])
         if launches == 0:
             fail(f"{name} launched on none of the paths")
         log(f"{name} at {rep['shape']}: {rep['ms']:.4f} ms (kernel alone "
@@ -5571,13 +5883,15 @@ def main(device: str = "cuda") -> None:
             f"windowed / untracked path / sync-free enqueue / sync-free "
             f"flushes / sync-free reads / admission and snapshots / "
             f"tiering / algebra and probe / paper path / recsys path / "
-            f"LM scaffold / graph and routed {main_launches[name]} / "
+            f"LM scaffold / graph and routed / placement "
+            f"{main_launches[name]} / "
             f"{win_launches[name]} / {flat_launches[name]} / "
             f"{sync_launches[name]} / {flush_launches[name]} / "
             f"{read_launches[name]} / {adm_launches[name]} / "
             f"{tier_launches[name]} / {alg_launches[name]} / "
             f"{paper_launches[name]} / {rec_launches[name]} / "
-            f"{lm_launches[name]} / {gnn_launches[name]}")
+            f"{lm_launches[name]} / {gnn_launches[name]} / "
+            f"{p17_launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5595,7 +5909,8 @@ def main(device: str = "cuda") -> None:
         "profile_epoch": profile, "window_path": e2e2,
         "admission": adm_report, "tiering": tier_report,
         "algebra": alg_report, "paper": paper_report,
-        "recsys": rec_report, "lm": lm_report, "gnn": gnn_report}),
+        "recsys": rec_report, "lm": lm_report, "gnn": gnn_report,
+        "placement": p17_report}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -85,3 +85,16 @@ def get(name: str) -> Arch:
         if k == name or k.replace("-", "_").replace(".", "") == key:
             return a
     raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+
+
+def all_cells() -> list:
+    """Every (arch, shape) dry-run cell, with documented skips excluded."""
+    load_all()
+    cells = []
+    for a in ARCHS.values():
+        if a.family == "paper":
+            continue
+        for s in a.shapes:
+            if s not in a.skip_shapes:
+                cells.append((a.name, s))
+    return cells

@@ -95,10 +95,13 @@ def uniform_rows(key, total: int, n_cols: int, rows, device="cpu"
 def split(key, num: int) -> np.ndarray:
     """`jax.random.split(np.asarray(key, np.uint32), num)`, bit for bit:
     (num, 2) uint32 raw keys."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
     k = np.asarray(key, dtype=np.uint32).reshape(2)
-    idx = torch.arange(int(num), dtype=torch.int64)
-    b1, b2 = threefry2x32(int(k[0]), int(k[1]), idx >> 32, idx & MASK32)
-    return torch.stack([b1, b2], dim=1).numpy().astype(np.uint32)
+    with unset_fake_temporarily():  # host values, also in a fake dry run
+        idx = torch.arange(int(num), dtype=torch.int64)
+        b1, b2 = threefry2x32(int(k[0]), int(k[1]), idx >> 32, idx & MASK32)
+        return torch.stack([b1, b2], dim=1).numpy().astype(np.uint32)
 
 
 def random_bits(key, shape, device="cpu") -> torch.Tensor:

@@ -30,8 +30,7 @@ W_uk/W_uv folded into the query/output projections).
 Caches update as `jax.lax.dynamic_update_slice` does: the start is
 clamped so the update fits (a chunked layer past its cache length
 writes the last slot), by `index_copy` on device indices (no host
-synchronize).  The reference's `sharding.constrain` calls wait for the
-sharding slice.
+synchronize; `sharding.update_slice`, shard by shard on a mesh).
 """
 from __future__ import annotations
 
@@ -43,6 +42,7 @@ import torch
 from repro_torch.models.layers import (checkpointed, dense, rms_norm, rope,
                                        softcap)
 from repro_torch.models.params import P
+from repro_torch.sharding import einsum, reshape, update_slice
 
 NEG_INF = -2.0e38
 
@@ -69,12 +69,12 @@ def _scores_softmax(q, k, v, q_pos, k_pos, *, kind, window, attn_chunk,
 
     q: (B, Q, N, G, D) -- N kv heads x G groups; k/v: (B, S, N, D).
     """
-    s = torch.einsum("bqngd,bsnd->bngqs", q, k).float() * scale
+    s = einsum("bqngd,bsnd->bngqs", q, k).float() * scale
     s = softcap(s, cap)
     m = _mask(q_pos, k_pos, kind, window, attn_chunk)
     s = torch.where(m[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bngqs,bsnd->bqngd", p, v)
+    return einsum("bngqs,bsnd->bqngd", p, v)
 
 
 def _online_attend(q5, k, v, q_pos, k_pos, *, kind, window, attn_chunk,
@@ -89,7 +89,7 @@ def _online_attend(q5, k, v, q_pos, k_pos, *, kind, window, attn_chunk,
     dv = v.shape[-1]
 
     def step(m, l, acc, k_i, v_i, p_i):
-        s = torch.einsum("bqngd,bsnd->bngqs", q5, k_i).float() * scale
+        s = einsum("bqngd,bsnd->bngqs", q5, k_i).float() * scale
         s = softcap(s, cap)
         mask = _mask(q_pos, p_i, kind, window, attn_chunk)
         s = torch.where(mask[None, None, None], s, NEG_INF)
@@ -97,7 +97,7 @@ def _online_attend(q5, k, v, q_pos, k_pos, *, kind, window, attn_chunk,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + einsum(
             "bngqs,bsnd->bngqd", p.to(v_i.dtype), v_i).float()
         return m_new, l, acc
 
@@ -124,15 +124,15 @@ def attend(q, k, v, q_pos, k_pos, *, kind: str = "global",
     n = k.shape[2]
     g = h // n
     dv = v.shape[-1]  # may differ from d (MLA: d_qk=192, d_v=128)
-    q5 = q.reshape(b, sq, n, g, d)
+    q5 = reshape(q, b, sq, n, g, d)
     kw = dict(kind=kind, window=window, attn_chunk=attn_chunk, scale=scale,
               cap=cap)
     if kv_chunk is not None and k.shape[1] % kv_chunk == 0 and sq > 1:
         out = _online_attend(q5, k, v, q_pos, k_pos, kv_chunk=kv_chunk, **kw)
-        return out.reshape(b, sq, h, dv)
+        return reshape(out, b, sq, h, dv)
     if chunk_q is None or sq <= chunk_q:
         out = _scores_softmax(q5, k, v, q_pos, k_pos, **kw)
-        return out.reshape(b, sq, h, dv)
+        return reshape(out, b, sq, h, dv)
     if sq % chunk_q:
         raise ValueError(f"query length {sq} is not a multiple of {chunk_q}")
 
@@ -146,16 +146,7 @@ def attend(q, k, v, q_pos, k_pos, *, kind: str = "global",
         # alive as backward residuals; recompute instead
         outs.append(checkpointed(one, qi, pi) if remat_chunks
                     else one(qi, pi))
-    return torch.cat(outs, dim=1).reshape(b, sq, h, dv)
-
-
-def _update_slice(buf, upd, start, dim: int):
-    """`jax.lax.dynamic_update_slice` of `upd` into `buf` along `dim` at the
-    0-dim device tensor `start`, clamped to [0, len - size] (out of place)."""
-    size, n = upd.shape[dim], buf.shape[dim]
-    st = torch.clamp(start.to(torch.int64), 0, n - size)
-    idx = st + torch.arange(size, dtype=torch.int64, device=buf.device)
-    return buf.index_copy(dim, idx, upd.to(buf.dtype))
+    return reshape(torch.cat(outs, dim=1), b, sq, h, dv)
 
 
 # --------------------------------------------------------------------------
@@ -195,12 +186,12 @@ def gqa_apply(params, x, positions, c: GQAConfig, *, kind="global",
     """x: (B, S, D); positions (S,) int32 on x's device.  With `cache`, S
     is the new-token count (decode=1); returns (out, new_cache)."""
     b, s, _ = x.shape
-    q = dense(x, params["wq"], params.get("bq")).reshape(b, s, c.n_heads,
-                                                         c.d_head)
-    k = dense(x, params["wk"], params.get("bk")).reshape(b, s, c.n_kv_heads,
-                                                         c.d_head)
-    v = dense(x, params["wv"], params.get("bv")).reshape(b, s, c.n_kv_heads,
-                                                         c.d_head)
+    q = reshape(dense(x, params["wq"], params.get("bq")), b, s, c.n_heads,
+                c.d_head)
+    k = reshape(dense(x, params["wk"], params.get("bk")), b, s, c.n_kv_heads,
+                c.d_head)
+    v = reshape(dense(x, params["wv"], params.get("bv")), b, s, c.n_kv_heads,
+                c.d_head)
     if use_rope:
         q = rope(q, positions, c.rope_theta)
         k = rope(k, positions, c.rope_theta)
@@ -210,9 +201,9 @@ def gqa_apply(params, x, positions, c: GQAConfig, *, kind="global",
     if cache is not None:
         slots = (positions % cache["k"].shape[1]) if kind == "local" \
             else positions
-        ck = _update_slice(cache["k"], k, slots[0], 1)
-        cv = _update_slice(cache["v"], v, slots[0], 1)
-        cpos = _update_slice(cache["pos"], positions.to(torch.int32),
+        ck = update_slice(cache["k"], k, slots[0], 1)
+        cv = update_slice(cache["v"], v, slots[0], 1)
+        cpos = update_slice(cache["pos"], positions.to(torch.int32),
                              slots[0], 0)
         new_cache = {"k": ck, "v": cv, "pos": cpos}
         k, v, k_pos = ck, cv, cpos
@@ -224,7 +215,7 @@ def gqa_apply(params, x, positions, c: GQAConfig, *, kind="global",
     out = attend(q, k, v, positions, k_pos, kind=kind, window=window,
                  attn_chunk=attn_chunk, scale=scale, cap=c.attn_softcap,
                  chunk_q=chunk_q, kv_chunk=kv_chunk)
-    return dense(out.reshape(b, s, -1), params["wo"]), new_cache
+    return dense(reshape(out, b, s, -1), params["wo"]), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -257,7 +248,7 @@ def mla_specs(c: MLAConfig) -> dict:
 
 def _mla_qkr(params, x, positions, c: MLAConfig):
     b, s, _ = x.shape
-    q = dense(x, params["wq"]).reshape(b, s, c.n_heads, c.qk_nope + c.qk_rope)
+    q = reshape(dense(x, params["wq"]), b, s, c.n_heads, c.qk_nope + c.qk_rope)
     q_nope, q_rope = q[..., :c.qk_nope], q[..., c.qk_nope:]
     q_rope = rope(q_rope, positions, c.rope_theta)
     ckv = rms_norm(dense(x, params["wdkv"]), params["kv_norm"])  # (B,S,L)
@@ -271,15 +262,15 @@ def mla_prefill(params, x, positions, c: MLAConfig, *, chunk_q=None,
     """Training / prefill path: per-head K,V materialized from the latent."""
     b, s, _ = x.shape
     q_nope, q_rope, ckv, k_rope = _mla_qkr(params, x, positions, c)
-    k_nope = dense(ckv, params["wuk"]).reshape(b, s, c.n_heads, c.qk_nope)
-    v = dense(ckv, params["wuv"]).reshape(b, s, c.n_heads, c.v_dim)
+    k_nope = reshape(dense(ckv, params["wuk"]), b, s, c.n_heads, c.qk_nope)
+    v = reshape(dense(ckv, params["wuv"]), b, s, c.n_heads, c.v_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, c.n_heads, c.qk_rope)], dim=-1)
     scale = (c.qk_nope + c.qk_rope) ** -0.5
     out = attend(q, k, v, positions, positions, kind="global", scale=scale,
                  chunk_q=chunk_q, kv_chunk=kv_chunk)
-    y = dense(out.reshape(b, s, -1), params["wo"])
+    y = dense(reshape(out, b, s, -1), params["wo"])
     cache = ({"ckv": ckv, "kr": k_rope, "pos": positions.to(torch.int32)}
              if want_cache else None)
     return y, cache
@@ -289,21 +280,21 @@ def mla_decode(params, x, positions, c: MLAConfig, cache: dict):
     """Absorbed decode: attention runs directly against the cached latent."""
     b, s, _ = x.shape  # s == new tokens (1)
     q_nope, q_rope, ckv_new, kr_new = _mla_qkr(params, x, positions, c)
-    ckv = _update_slice(cache["ckv"], ckv_new, positions[0], 1)
-    kr = _update_slice(cache["kr"], kr_new, positions[0], 1)
-    cpos = _update_slice(cache["pos"], positions.to(torch.int32),
+    ckv = update_slice(cache["ckv"], ckv_new, positions[0], 1)
+    kr = update_slice(cache["kr"], kr_new, positions[0], 1)
+    cpos = update_slice(cache["pos"], positions.to(torch.int32),
                          positions[0], 0)
-    wuk = params["wuk"].reshape(c.kv_lora, c.n_heads, c.qk_nope)
-    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, wuk.to(q_nope.dtype))
-    s_lat = torch.einsum("bqhl,bsl->bhqs", q_lat, ckv.to(q_lat.dtype))
-    s_rot = torch.einsum("bqhr,bsr->bhqs", q_rope, kr.to(q_rope.dtype))
+    wuk = reshape(params["wuk"], c.kv_lora, c.n_heads, c.qk_nope)
+    q_lat = einsum("bqhd,lhd->bqhl", q_nope, wuk.to(q_nope.dtype))
+    s_lat = einsum("bqhl,bsl->bhqs", q_lat, ckv.to(q_lat.dtype))
+    s_rot = einsum("bqhr,bsr->bhqs", q_rope, kr.to(q_rope.dtype))
     scale = (c.qk_nope + c.qk_rope) ** -0.5
     scores = (s_lat + s_rot).float() * scale
     m = _mask(positions, cpos, "global", None, None)
     scores = torch.where(m[None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqs,bsl->bqhl", p, ckv.to(p.dtype))
-    wuv = params["wuv"].reshape(c.kv_lora, c.n_heads, c.v_dim)
-    out = torch.einsum("bqhl,lhv->bqhv", ctx, wuv.to(ctx.dtype))
-    y = dense(out.reshape(b, s, -1), params["wo"])
+    ctx = einsum("bhqs,bsl->bqhl", p, ckv.to(p.dtype))
+    wuv = reshape(params["wuv"], c.kv_lora, c.n_heads, c.v_dim)
+    out = einsum("bqhl,lhv->bqhv", ctx, wuv.to(ctx.dtype))
+    y = dense(reshape(out, b, s, -1), params["wo"])
     return y, {"ckv": ckv, "kr": kr, "pos": cpos}

@@ -7,10 +7,11 @@ blocks, per-block output heads.
 
 Message passing is gathers over the edge and triplet index lists and a
 segment sum, as in the reference.  `jax.ops.segment_sum` becomes
-`index_add` on a zero tensor (`_segment_sum`): on the CPU it adds in
-index order as XLA's scatter does; on CUDA it adds with atomics, so the
-card agrees with the CPU within a float32 tolerance, not bit for bit.
-The gathers are `index_select`, whose backward is that same
+`index_add` on a zero tensor (`sharding.segment_sum`): on the CPU it adds
+in index order as XLA's scatter does; on CUDA it adds with atomics, so
+the card agrees with the CPU within a float32 tolerance, not bit for
+bit.  The gathers are `index_select` (`sharding.take`, shard-local on
+DTensors), whose backward is that same
 `index_add`: advanced indexing's backward (`index_put_` with
 accumulate) sorts the indices and adds each index's duplicates in one
 serial loop, and a sampled triplet list points most of its masked
@@ -28,8 +29,9 @@ self-loops, so r = 1e-6 occurs and the envelope reaches about 1e6),
 `lax.integer_pow`'s binary exponentiation for x ** n (`_ipow`), and the
 small-argument series of j_l.  torch's and XLA's float32 sin / cos
 differ by an ulp here and there; the tests bound what that moves.  The
-reference's `sharding.constrain` calls are left out (the GSPMD
-placement waits for the DTensor slice).
+edge messages pass through `sharding.constrain` where the reference's
+do, and the edge and triplet masks scale their rows through
+`sharding.scale_rows` (shard-local on DTensors).
 
 `loss_fn_sharded` is the reference's local-triplets mode on a
 `torch.distributed` group: each rank holds its own partition of the edge
@@ -52,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch import routing
 from repro_torch.models.layers import checkpointed, dense
 from repro_torch.models.params import P
+from repro_torch.sharding import constrain, scale_rows, segment_sum, take
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +205,9 @@ def spherical_basis(r_kj, angle_cos, cfg: DimeNetConfig):
         ang = _legendre(l, angle_cos)
         for z in roots[l]:
             feats.append(env * _j_l(l, _f32(z) * r_kj / cfg.cutoff) * ang)
-    return torch.stack(feats, dim=-1)
+    # dim=1, not -1: torch 2.11's DTensor labels a stack on dim -1 of
+    # (T,) shards on dim 0 as sharded on dim 1, though each rank holds rows
+    return torch.stack(feats, dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -252,12 +257,6 @@ def model_flops(cfg: DimeNetConfig, n: int, e: int, t: int,
 # forward
 # --------------------------------------------------------------------------
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """`jax.ops.segment_sum(x, seg, num_segments=n)`: one `index_add` on
-    zeros (in index order on the CPU, atomics on CUDA)."""
-    return x.new_zeros((n,) + x.shape[1:]).index_add(0, seg, x)
-
-
 def _block_fwd(m, node_out, rbf, sbf, kj, ji, dst, e_mask, n_nodes, *bp):
     """One interaction block + its output head (checkpointed per block)."""
     (w_rbf, w_sbf, w_down, w_up, w_msg1, w_msg2, out_rbf, out_w1,
@@ -265,16 +264,17 @@ def _block_fwd(m, node_out, rbf, sbf, kj, ji, dst, e_mask, n_nodes, *bp):
     # directional interaction: gather messages of edges (k->j), gate by
     # rbf, low-rank bilinear with the angular basis, scatter to (j->i)
     gate = rbf @ w_rbf                                  # (E, d)
-    x_kj = (m * gate).index_select(0, kj)               # (T, d)
+    x_kj = take(m * gate, kj)                           # (T, d)
     p_t = x_kj @ w_down                                 # (T, nb)
     q_t = sbf @ w_sbf                                   # (T, nb)
     t_msg = (p_t * q_t) @ w_up                          # (T, d)
-    agg = _segment_sum(t_msg, ji, m.shape[0])
+    agg = segment_sum(t_msg, ji, m.shape[0])
     m_new = F.silu(m @ w_msg1 + agg @ w_msg2) + m
     if e_mask is not None:
-        m_new = m_new * e_mask[:, None]
+        m_new = scale_rows(m_new, e_mask)
+    m_new = constrain(m_new, "edges", None)
     # output block: edges -> nodes
-    contrib = _segment_sum(m_new * (rbf @ out_rbf), dst, n_nodes)
+    contrib = segment_sum(m_new * (rbf @ out_rbf), dst, n_nodes)
     node_out = node_out + dense(F.silu(contrib @ out_w1), out_w2).to(
         node_out.dtype)
     return m_new, node_out
@@ -303,32 +303,33 @@ def apply(params, inputs, cfg: DimeNetConfig, psum_group=None):
     if cfg.d_feat is not None:
         h = dense(inputs["x_feat"], params["emb_node"])
     else:
-        h = params["emb_atom"].index_select(0, inputs["atom_z"].long())
+        h = take(params["emb_atom"], inputs["atom_z"].long())
     h = F.silu(h)
 
     # edge geometry
-    vec = pos.index_select(0, dst) - pos.index_select(0, src)  # (E, 3)
+    vec = take(pos, dst) - take(pos, src)               # (E, 3)
     r = torch.sqrt(torch.clamp(_ipow(vec, 2).sum(-1), min=1e-12))  # (E,)
     rbf = radial_basis(r, cfg)                          # (E, n_radial)
 
     # triplet geometry: angle between edge kj and ji at shared node j
     kj, ji = inputs["t_kj"].long(), inputs["t_ji"].long()
-    v1 = -vec.index_select(0, kj)                       # j -> k
-    v2 = vec.index_select(0, ji)                        # j -> i
+    v1 = -take(vec, kj)                                 # j -> k
+    v2 = take(vec, ji)                                  # j -> i
     cos_a = (v1 * v2).sum(-1) / torch.clamp(
         torch.sqrt(_ipow(v1, 2).sum(-1) * _ipow(v2, 2).sum(-1)), min=1e-9)
-    sbf = spherical_basis(r.index_select(0, kj),
+    sbf = spherical_basis(take(r, kj),
                           torch.clamp(cos_a, -1.0, 1.0), cfg)
-    sbf = sbf * inputs["t_mask"][:, None]
+    sbf = scale_rows(sbf, inputs["t_mask"])
 
     # edge embedding m_ji = MLP([h_j, h_i, rbf]); padded edges masked out
     e_mask = inputs.get("edge_mask")
     m = F.silu(dense(
-        torch.cat([h.index_select(0, src), h.index_select(0, dst),
+        torch.cat([take(h, src), take(h, dst),
                    rbf @ params["emb_rbf"]], dim=-1),
         params["emb_edge"]))                            # (E, d)
     if e_mask is not None:
-        m = m * e_mask[:, None]
+        m = scale_rows(m, e_mask)
+    m = constrain(m, "edges", None)
 
     node_out = pos.new_zeros((n_nodes, cfg.n_targets))
     blocks = params["blocks"]
@@ -342,7 +343,7 @@ def apply(params, inputs, cfg: DimeNetConfig, psum_group=None):
         # commutes with the all-reduce); everything edge<->edge stayed local
         node_out = routing.sum_over_ranks(node_out, psum_group)
     if cfg.readout == "graph":
-        return _segment_sum(node_out, inputs["graph_id"].long(),
+        return segment_sum(node_out, inputs["graph_id"].long(),
                             int(inputs["n_graphs"]))
     return node_out
 

@@ -2,17 +2,19 @@
 
 Counterpart of `repro/models/layers.py`.  Weights keep the reference's
 `(in, out)` layout (`dense` is `x @ w`), so parameters carry across
-without transposes.  The reference's `sharding.constrain` calls do
-nothing outside its `use_rules` context; the port leaves them out until
-a sharding slice brings `torch.distributed` placement.
+without transposes.  Under `sharding.use_rules` the same functions run
+on DTensors.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.models.params import P
+from repro_torch.sharding import (chunk_range, from_local, is_dtensor,
+                                  matmul, replicated)
 
 
 def rms_norm(x, scale, eps: float = 1e-6, unit_offset: bool = False):
@@ -32,7 +34,7 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
 
 
 def dense(x, w, b=None):
-    y = x @ w.to(x.dtype)
+    y = matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -83,8 +85,38 @@ def softcap(x, cap: float | None):
     return cap * torch.tanh(x / cap)
 
 
+def _row_shard(table, ids):
+    """The pieces of a lookup into a DTensor table: (local table, local
+    ids shifted into this rank's rows, in-shard mask, output placements,
+    mesh, the ids as placed).  Mesh dims sharding the rows give a partial
+    sum (every other rank of the group contributes zeros); dims sharding
+    the columns shard the output's last dim; elsewhere the output takes
+    the ids' placement.  The ids are replicated on every mesh dim the
+    table shards."""
+    mesh, pl = table.device_mesh, table.placements
+    ids = replicated(ids, mesh)
+    ids = ids.redistribute(mesh, [Replicate() if p.is_shard() else q
+                                  for p, q in zip(pl, ids.placements)])
+    lo, rows = chunk_range(table.shape[0], mesh,
+                           [d for d, p in enumerate(pl) if p.is_shard(0)])
+    out_pl = [Partial("sum") if p.is_shard(0) else
+              Shard(ids.ndim) if p.is_shard() else q
+              for p, q in zip(pl, ids.placements)]
+    local = ids.to_local().long()
+    mine = (local >= lo) & (local < lo + rows)
+    return (table.to_local(), torch.where(mine, local - lo, 0), mine, out_pl,
+            mesh, ids)
+
+
 def embed_lookup(table, ids):
-    return F.embedding(ids.long(), table)
+    """`table[ids]`.  A DTensor table looks its own rows up on each rank
+    (`_row_shard`): a row-sharded table gives a partial sum that the
+    next `constrain` reduces, and no rank gathers the table."""
+    if not is_dtensor(table):
+        return F.embedding(ids.long(), table)
+    t_loc, i_loc, mine, out_pl, mesh, ids = _row_shard(table, ids)
+    out = F.embedding(i_loc, t_loc) * mine[..., None].to(t_loc.dtype)
+    return from_local(out, mesh, out_pl, tuple(ids.shape) + (table.shape[1],))
 
 
 def embedding_bag(table, ids, mode: str = "mean", weights=None):
@@ -94,6 +126,8 @@ def embedding_bag(table, ids, mode: str = "mean", weights=None):
     8.19 GB)."""
     if mode not in ("sum", "mean", "max"):
         raise ValueError(mode)
+    if is_dtensor(table):
+        return _sharded_bag(table, ids, mode, weights)
     lead, bag = ids.shape[:-1], ids.shape[-1]
     flat = ids.reshape(-1, bag).long()
     if weights is None:
@@ -108,6 +142,26 @@ def embedding_bag(table, ids, mode: str = "mean", weights=None):
         if mode == "mean":
             out = out / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-6)
     return out.reshape(*lead, table.shape[-1])
+
+
+def _sharded_bag(table, ids, mode: str, weights):
+    """An unweighted "sum" / "mean" `embedding_bag` of a DTensor table:
+    each rank sums its own rows with the in-shard mask as per-sample
+    weights (times 1 / bag for "mean"), a partial sum over the mesh dims
+    sharding the rows."""
+    if mode == "max" or weights is not None:
+        raise NotImplementedError("a sharded table takes unweighted sum "
+                                  "and mean bags only")
+    t_loc, i_loc, mine, out_pl, mesh, ids = _row_shard(table, ids)
+    bag = ids.shape[-1]
+    w = mine.to(t_loc.dtype)
+    if mode == "mean":
+        w = w / bag
+    out = F.embedding_bag(i_loc.reshape(-1, bag), t_loc, mode="sum",
+                          per_sample_weights=w.reshape(-1, bag))
+    out = out.reshape(*w.shape[:-1], t_loc.shape[-1])
+    return from_local(out, mesh, out_pl,
+                      tuple(ids.shape[:-1]) + (table.shape[1],))
 
 
 class _LseAndPick(torch.autograd.Function):
@@ -140,9 +194,70 @@ class _LseAndPick(torch.autograd.Function):
         return grad, None
 
 
+class _ShardLseAndPick(torch.autograd.Function):
+    """`_LseAndPick` on one rank's vocabulary shard [lo, lo + V_loc) of
+    logits sharded over `groups`: the row max and the exp sum are
+    all-reduced over each group in turn, and the target's logit comes
+    from the one rank whose shard holds it (a sum of zeros elsewhere).
+    The backward is local: the upstream gradients are the same on every
+    rank of the groups."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        m = logits.amax(dim=-1)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        s = torch.sub(logits, m[..., None]).exp_().sum(dim=-1)
+        mine = (targets >= lo) & (targets < lo + logits.shape[-1])
+        idx = torch.where(mine, targets - lo, 0)
+        pick = torch.gather(logits, -1, idx[..., None])[..., 0] * mine
+        for g in groups:
+            s = funcol.all_reduce(s, "sum", g)
+            pick = funcol.all_reduce(pick, "sum", g)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(logits, lse, idx, mine)
+        return lse, pick
+
+    @staticmethod
+    def backward(ctx, g_lse, g_pick):
+        logits, lse, idx, mine = ctx.saved_tensors
+        if g_lse is None:
+            grad = torch.zeros_like(logits)
+        else:
+            grad = torch.sub(logits, lse[..., None]).exp_()
+            grad.mul_(g_lse[..., None])
+        if g_pick is not None:
+            grad.scatter_add_(-1, idx[..., None], (g_pick * mine)[..., None])
+        return grad, None, None, None
+
+
+def _sharded_lse_and_pick(logits, targets):
+    """(logsumexp, logits at the targets) of DTensor logits, vocabulary-
+    parallel: no rank gathers the vocabulary dimension.  Pending partial
+    sums are reduced first; the targets take the logits' placements on
+    the leading dimensions."""
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    lead = [Replicate() if p.is_shard(last) else p for p in pl]
+    targets = replicated(targets, mesh).redistribute(mesh, lead)
+    dims = [d for d, p in enumerate(pl) if p.is_shard(last)]
+    lo, _ = chunk_range(logits.shape[last], mesh, dims)
+    lse, pick = _ShardLseAndPick.apply(logits.to_local(), targets.to_local(),
+                                       lo, [mesh.get_group(d) for d in dims])
+    return tuple(from_local(t, mesh, lead, targets.shape)
+                 for t in (lse, pick))
+
+
 def cross_entropy(logits, targets, z_loss: float = 0.0):
-    """Token-mean CE in fp32 with optional z-loss regularizer."""
-    lse, ll = _LseAndPick.apply(logits.float(), targets.long())
+    """Token-mean CE in fp32 with optional z-loss regularizer.  DTensor
+    logits take the vocabulary-parallel form (`_sharded_lse_and_pick`)."""
+    if is_dtensor(logits):
+        lse, ll = _sharded_lse_and_pick(logits.float(), targets.long())
+    else:
+        lse, ll = _LseAndPick.apply(logits.float(), targets.long())
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()

@@ -20,8 +20,8 @@ and Llama-4 Scout (16 routed top-1 + 1 shared).  `moe_apply_a2a` is the
 manual expert parallelism of the reference: every rank of a
 `torch.distributed` group keeps its tokens and owns E / W experts, and
 one capacity-bounded all-to-all pair (`routing.route` / `send_back`)
-carries the (token, k) rows to their experts and back.  The reference's
-`sharding.constrain` calls (GSPMD placement) are left out.
+carries the (token, k) rows to their experts and back.  The expert
+slots pass through `sharding.constrain` where the reference's do.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch import routing
 from repro_torch.models.layers import mlp_apply, mlp_specs, top_k
 from repro_torch.models.params import P
+from repro_torch.sharding import constrain, einsum, matmul, reshape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +85,7 @@ def _router(params, x, c: MoEConfig):
     """(gates (T, k), idx (T, k), aux): the router, top-k
     with `jax.lax.top_k`'s tie order, and the load-balance aux loss
     (Switch): E * sum_e fraction_e * router_prob_e."""
-    logits = (x @ params["router"].to(x.dtype)).float()
+    logits = matmul(x, params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                         # (T, E)
     gates, idx = top_k(probs, c.top_k)                            # (T, k)
     if c.norm_topk:
@@ -97,9 +98,9 @@ def _router(params, x, c: MoEConfig):
 
 def _experts(params, h):
     """(E, C, d) slots -> (E, C, d): the gated expert FFNs."""
-    up = torch.einsum("ecd,edf->ecf", h, params["up"].to(h.dtype))
-    gate = torch.einsum("ecd,edf->ecf", h, params["gate"].to(h.dtype))
-    return torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
+    up = einsum("ecd,edf->ecf", h, params["up"].to(h.dtype))
+    gate = einsum("ecd,edf->ecf", h, params["gate"].to(h.dtype))
+    return einsum("ecf,efd->ecd", F.silu(gate) * up,
                         params["down"].to(h.dtype))
 
 
@@ -112,7 +113,9 @@ def moe_apply(params, x, c: MoEConfig):
 
     flat_e = idx.reshape(-1)                                      # (T*k,)
     sorted_e, sort_idx = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=c.n_experts)
+    counts = torch.zeros(c.n_experts, dtype=torch.int64,  # static bincount
+                         device=x.device).index_add(
+        0, flat_e, torch.ones_like(flat_e))
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * c.top_k, device=x.device) - offsets[sorted_e]
     keep = rank < cap
@@ -123,9 +126,10 @@ def moe_apply(params, x, c: MoEConfig):
     # row n_slots is the spare that takes every dropped token, sliced off
     slots = x.new_zeros((n_slots + 1, d)).index_put(
         (dest,), x[tok] * keep[:, None].to(x.dtype))[:n_slots]
-    out = _experts(params, slots.reshape(c.n_experts, cap, d))
+    h = constrain(reshape(slots, c.n_experts, cap, d), "experts", None, None)
+    out = constrain(_experts(params, h), "experts", None, None)
 
-    padded = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))], dim=0)
+    padded = torch.cat([reshape(out, -1, d), out.new_zeros((1, d))], dim=0)
     y_sorted = padded[torch.clamp(dest, max=n_slots)]
     y_flat = x.new_zeros((t * c.top_k, d)).index_put((sort_idx,), y_sorted)
     y = (y_flat.reshape(t, c.top_k, d)

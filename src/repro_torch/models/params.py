@@ -10,8 +10,14 @@ weights across with `convert.params_from_numpy` instead.
 A tree here is nested dicts with string keys; `flatten` (the
 checkpoints' own) lists its leaves as `jax.tree_util` flattens the
 reference's (keys sorted), under paths joined by "/" (`tables/t0`,
-`bot/w0`), the paths the optimizer's label function reads.  `abstract_tree` and
-`tree_shardings` wait for the sharding slice.
+`bot/w0`), the paths the optimizer's label function reads.
+
+`abstract_tree` makes tensors that allocate nothing: inside a
+`FakeTensorMode` fake ones on the mesh's device type, else on the
+"meta" device; with a mesh each is a DTensor carrying
+`sharding.sharding_for`'s placements (its local shard is rank's share).
+`tree_shardings` is the tree of those placements, which
+`train/checkpoint.place` and `distribute_tree` put concrete leaves on.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.sharding import (Rules, chunk_range, distribute, from_local,
+                                  sharding_for)
 from repro_torch.train.checkpoint import flatten
 
 
@@ -81,6 +89,54 @@ def init_tree(specs, generator=None, device=None) -> dict:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     return tree_map(lambda s: _init_one(s, generator, dev), specs)
+
+
+def _local_shape(shape, mesh, placements) -> tuple:
+    """This rank's shard shape (torch.chunk's split, as DTensor's)."""
+    return tuple(chunk_range(n, mesh, [d for d, p in enumerate(placements)
+                                       if p.is_shard(i)])[1]
+                 for i, n in enumerate(shape))
+
+
+def abstract_tree(specs, rules: Rules = None, mesh=None):
+    """Tensors with each spec's shape and dtype that allocate nothing:
+    fake ones inside an active `FakeTensorMode`, meta ones otherwise;
+    DTensors with `sharding_for`'s placements when a mesh is given."""
+    from torch._guards import detect_fake_mode
+
+    fake = detect_fake_mode() is not None
+
+    def mk(s: P):
+        if mesh is None:
+            return torch.empty(s.shape, dtype=s.dtype,
+                               device="cpu" if fake else "meta")
+        pl = sharding_for(s.axes, rules, mesh, s.shape)
+        local = torch.empty(_local_shape(s.shape, mesh, pl), dtype=s.dtype,
+                            device=mesh.device_type if fake else "meta")
+        return from_local(local, mesh, pl, s.shape)
+
+    return mk(specs) if isinstance(specs, P) else tree_map(mk, specs)
+
+
+def tree_shardings(specs, rules: Rules, mesh) -> dict:
+    """The tree of each spec's DTensor placements on `mesh` (a tuple a
+    leaf: read it by path, `flatten` would walk into it)."""
+    return unflatten({k: sharding_for(s.axes, rules, mesh, s.shape)
+                      for k, s in flatten(specs).items()})
+
+
+def _at_path(tree: dict, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def distribute_tree(tree, shardings, mesh) -> dict:
+    """Each leaf of `tree` (the same leaf on every rank) as a DTensor with
+    its placements from `shardings` (`sharding.distribute`: each rank
+    keeps its own shard; no data moves between ranks)."""
+    return unflatten({k: distribute(v, mesh, _at_path(shardings, k))
+                      for k, v in flatten(tree).items()})
 
 
 def param_count(specs) -> int:

@@ -11,8 +11,8 @@ The counting plane (the paper's CMLS sketch) enters here in two places:
 Lookups are `F.embedding` / `F.embedding_bag` (the reference's `jnp.take`
 and gather + reduce), the matrix products `torch.matmul` / `bmm`, and
 autograd computes every gradient: no Pallas kernel sits on this path.
-The reference's `constrain` calls do nothing outside its `use_rules`
-context and are left out (GSPMD placement waits for the DTensor slice).
+`sharding.constrain` sits where the reference's does; it does nothing
+outside `sharding.use_rules` or on plain tensors.
 
 The row-sharded DLRM path runs on a ("data", "model") `DeviceMesh`
 (`launch/mesh.make_host_mesh`).  A field is sharded over the model axis
@@ -44,8 +44,10 @@ import torch.nn.functional as F
 from repro_torch import routing
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import dense, embedding_bag, layer_norm, top_k
+from repro_torch.models.layers import (dense, embed_lookup, embedding_bag,
+                                       layer_norm, top_k)
 from repro_torch.models.params import P, flatten, unflatten
+from repro_torch.sharding import constrain
 
 # Criteo-1TB per-field cardinalities (MLPerf DLRM reference, day_fea_count),
 # capped at max_ind_range = 40M per the MLPerf benchmark convention.
@@ -131,7 +133,7 @@ def dlrm_lookup(tables, sparse, c: DLRMConfig) -> torch.Tensor:
     """(B, n_sparse) ids -> (B, n_sparse, D) embeddings (one gather per
     field)."""
     sparse = sparse.long()
-    return torch.stack([F.embedding(sparse[:, i], tables[f"t{i}"])
+    return torch.stack([embed_lookup(tables[f"t{i}"], sparse[:, i])
                         for i in range(c.n_sparse)], dim=1)
 
 
@@ -195,6 +197,7 @@ def dlrm_apply_from_emb(params, dense_x, embs, c: DLRMConfig):
     """Interaction + MLPs given pre-looked-up embeddings (B, n_sparse, D)."""
     x = _mlp_stack(params["bot"], dense_x, len(c.bot_mlp) - 1,
                    final_act=True)                       # (B, 128)
+    x = constrain(x, "batch", None)
     z = torch.cat([x[:, None, :], embs], dim=1)          # (B, 27, D)
     inter = torch.bmm(z, z.transpose(1, 2))              # pairwise dots
     # row-major strict upper triangle, the order of jnp.triu_indices
@@ -221,10 +224,11 @@ def dlrm_score_candidates(params, batch, cand_ids, c: DLRMConfig,
     x = _mlp_stack(params["bot"], batch["dense"], len(c.bot_mlp) - 1,
                    final_act=True)[0]                     # (128,)
     ctx = batch["sparse"][0].long()
-    fixed = [params["tables"][f"t{i}"][ctx[i]]
+    fixed = [embed_lookup(params["tables"][f"t{i}"], ctx[i])
              for i in range(c.n_sparse) if i != cand_field]
-    cand = F.embedding((cand_ids % c.table_sizes[cand_field]).long(),
-                       params["tables"][f"t{cand_field}"])  # (C, D)
+    cand = embed_lookup(params["tables"][f"t{cand_field}"],
+                        cand_ids % c.table_sizes[cand_field])  # (C, D)
+    cand = constrain(cand, "candidates", None)
     zf = torch.stack([x] + fixed, dim=0)                 # (26, D)
     inter_ff = zf @ zf.T                                 # fixed x fixed
     inter_fc = cand @ zf.T                               # (C, 26)
@@ -410,8 +414,9 @@ def sasrec_specs(c: SASRecConfig) -> dict:
 
 def sasrec_encode(params, history, c: SASRecConfig):
     """history (B, S) item ids -> (B, S, D) contextual item states."""
-    x = F.embedding(history.long(), params["items"])
+    x = embed_lookup(params["items"], history)
     x = x + params["pos"][None, :, :].to(x.dtype)
+    x = constrain(x, "batch", None, None)
     for i in range(c.n_blocks):
         x = _enc_block(params["blocks"][f"b{i}"], x, c.embed_dim, c.n_heads,
                        causal=c.causal)
@@ -424,7 +429,7 @@ def _sampled_softmax(params, h, target, rng, c: SASRecConfig,
     `rng`: a raw threefry key ((2,) uint32)."""
     negs = prng.randint(rng, (c.n_neg,), 0, c.n_items, device=h.device)
     cand = torch.cat([target.long(), negs.long()])       # (B + n_neg,)
-    e = F.embedding(cand, params["items"])               # (B+n, D)
+    e = embed_lookup(params["items"], cand)              # (B+n, D)
     logits = (h @ e.T).float()                           # (B, B+n)
     if logq is not None:
         logits = logits - logq[None, :]
@@ -454,7 +459,8 @@ def bert4rec_loss(params, batch, c: SASRecConfig, rng):
 
 def score_candidates(params, h, cand_ids):
     """h (B, D) x candidate ids (C,) -> (B, C) scores (retrieval_cand cell)."""
-    e = F.embedding(cand_ids.long(), params["items"])
+    e = embed_lookup(params["items"], cand_ids)
+    e = constrain(e, "candidates", None)
     return (h @ e.T).float()
 
 
@@ -542,4 +548,5 @@ def twotower_score_candidates(params, batch, cand_feats, c: TwoTowerConfig):
                batch["user_feats"], c.tower)
     v = _tower(params["item_tower"], params["item_table"], cand_feats,
                c.tower)
+    v = constrain(v, "candidates", None)
     return (u @ v.T).float() / c.temperature

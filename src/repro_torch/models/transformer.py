@@ -33,8 +33,8 @@ Values do not depend on the policy.
 `sharding.use_rules(rules, mesh)` with a "model" mesh axis, tokens stay
 on their rank and `moe.moe_apply_a2a` routes them to the experts of the
 model group; with no such mesh it runs `moe_apply`, as the reference
-does.  The reference's `sharding.constrain` calls are left out (GSPMD
-placement waits for the DTensor slice).
+does.  The residual stream passes through `sharding.constrain` where
+the reference's does (`_embed`, `_group_fwd`).
 """
 from __future__ import annotations
 
@@ -216,8 +216,9 @@ def _layer(p, x, positions, cfg: LMConfig, kind: str, cache=None,
             f, aux = _moe_shardmap(p["moe"], h, cfg)
         else:
             t, d = h.shape[0] * h.shape[1], h.shape[2]
-            f, aux = moe_lib.moe_apply(p["moe"], h.reshape(t, d), cfg.moe)
-            f = f.reshape(x.shape)
+            f, aux = moe_lib.moe_apply(p["moe"], sharding.reshape(h, t, d),
+                                       cfg.moe)
+            f = sharding.reshape(f, *x.shape)
     else:
         f = mlp_apply(p["mlp"], h, cfg.activation)
     if cfg.post_norms:
@@ -238,8 +239,8 @@ def _moe_shardmap(params, h, cfg: LMConfig):
     ctx = sharding.current_ctx()
     if ctx is None or "model" not in sharding.mesh_shape(ctx[1]):
         t, d = h.shape[0] * h.shape[1], h.shape[2]
-        f, aux = moe_lib.moe_apply(params, h.reshape(t, d), cfg.moe)
-        return f.reshape(h.shape), aux
+        f, aux = moe_lib.moe_apply(params, sharding.reshape(h, t, d), cfg.moe)
+        return sharding.reshape(f, *h.shape), aux
     mesh = ctx[1]
     n_model = mesh.size(mesh.mesh_dim_names.index("model"))
     e_loc = cfg.moe.n_experts // n_model
@@ -263,6 +264,7 @@ def _group_fwd(block, x, positions, cfg: LMConfig, caches=None,
         if nc is not None:
             new_caches[f"l{j}"] = nc
         aux_total = aux_total + aux
+    x = sharding.constrain(x, "batch", "act_seq", "act_embed")
     return x, new_caches, aux_total
 
 
@@ -270,13 +272,13 @@ def _embed(params, tokens, cfg: LMConfig):
     x = embed_lookup(params["embed"], tokens).to(cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
-    return x
+    return sharding.constrain(x, "batch", "act_seq", "act_embed")
 
 
 def _head(params, x, cfg: LMConfig):
     x = rms_norm(x, params["ln_final"], unit_offset=cfg.norm_unit_offset)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = sharding.matmul(x, params["embed"].to(x.dtype).T)
     else:
         logits = dense(x, params["head"])
     return softcap(logits.float(), cfg.final_softcap)
@@ -434,9 +436,16 @@ def _pack_cache(raw, kind: str, cfg: LMConfig, s: int, max_len: int):
              else positions).long()
 
     def place(x):
-        out = x.new_zeros((x.shape[0], L) + x.shape[2:])
-        out[:, slots] = x[:, lo:s]
-        return out
+        # slot = position % L over the last L positions: a rotation of the
+        # block, so slices and a concatenation (no index write, which
+        # DTensor has no strategy for on a sharded sequence)
+        blk, n = x[:, lo:s], s - lo
+        if n < L:  # then lo = 0 and slot p holds position p
+            return torch.cat([blk, blk.new_zeros(
+                (blk.shape[0], L - n) + blk.shape[2:])], dim=1)
+        r = lo % L if kind in ("local", "chunked") else 0
+        return torch.cat([blk[:, L - r:], blk[:, :L - r]], dim=1) if r \
+            else blk
 
     pos = torch.full((L,), -1, dtype=torch.int32, device=dev)
     pos[slots] = positions

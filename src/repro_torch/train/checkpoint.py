@@ -20,8 +20,16 @@ same structure whose leaves are tensors, numpy arrays or `Leaf`
 (shape, dtype) specs: a tensor, or a `Leaf` with a torch dtype, comes
 back as a tensor on `device` (default: the target tensor's device, else
 CUDA); a numpy array, or a `Leaf` with a numpy dtype, as a numpy array
-on the host.  The saved dtype is kept.  Restoring onto another mesh is
-not ported yet.
+on the host.  The saved dtype is kept.
+
+Placed trees cross meshes as the reference's `device_put(arr,
+like.sharding)` does: `save` writes each DTensor leaf whole
+(`full_tensor()`, a gather every rank of its mesh joins; rank 0 writes
+the one file, the others wait at a barrier, in `save` and in the
+`join()` of `save_async`'s `Pending`), and a DTensor target leaf
+comes back with the target's mesh and placements, each rank keeping its
+shard (`sharding.distribute`), whatever mesh wrote it.  So a JAX-written
+checkpoint, or numpy parameters, go onto a mesh through `place`.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.counters import from_numpy, to_numpy
+from repro_torch.sharding import is_dtensor, distribute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +77,10 @@ def flatten(tree) -> dict[str, Any]:
 
 def _host(leaf) -> np.ndarray:
     """A host copy of the leaf, never a view of live state (a CPU tensor's
-    `.numpy()` shares its memory, and the service updates in place)."""
+    `.numpy()` shares its memory, and the service updates in place); a
+    DTensor whole."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         host = to_numpy(leaf)
         return host.copy() if leaf.device.type == "cpu" else host
@@ -80,8 +92,13 @@ def save(root: str, step: int, tree, metadata: Optional[dict] = None,
     """Atomic checkpoint write; returns the final directory."""
     final = os.path.join(root, f"step_{step:08d}")
     tmp = final + ".tmp"
+    flat = flatten(tree)
+    arrays = {k: _host(v) for k, v in flat.items()}
+    placed = any(is_dtensor(v) for v in flat.values())
+    if placed and torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()  # rank 0 writes the one file
+        return final
     os.makedirs(tmp, exist_ok=True)
-    arrays = {k: _host(v) for k, v in flatten(tree).items()}
     np.savez(os.path.join(tmp, f"shard_{host_id:05d}.npz"), **arrays)
     manifest = {
         "step": step,
@@ -96,6 +113,8 @@ def save(root: str, step: int, tree, metadata: Optional[dict] = None,
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic publish
     _gc(root, keep_last)
+    if placed:
+        torch.distributed.barrier()
     return final
 
 
@@ -105,14 +124,37 @@ def to_host(tree):
     return _walk(tree, lambda _, leaf: _host(leaf))
 
 
-def save_async(root: str, step: int, tree, **kw) -> threading.Thread:
-    """Copy the tree to host memory now, write it in a background
-    thread; join the returned thread before reading the checkpoint."""
+class Pending:
+    """A checkpoint being written (`save_async`): `join()` returns once it
+    is published.  A placed tree is published by rank 0 alone, and every
+    rank's `join()` ends at a barrier, so no rank reads it before then."""
+
+    def __init__(self, thread: Optional[threading.Thread], placed: bool):
+        self.thread, self.placed = thread, placed
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        if self.thread is not None:
+            self.thread.join(timeout)
+        if self.placed:
+            torch.distributed.barrier()
+
+    def is_alive(self) -> bool:
+        return self.thread is not None and self.thread.is_alive()
+
+
+def save_async(root: str, step: int, tree, **kw) -> Pending:
+    """Copy the tree to host memory now (DTensor leaves whole: a gather
+    every rank of their mesh joins), write it in a background thread;
+    join the returned `Pending` before reading the checkpoint.  A placed
+    tree is written by rank 0 only; every rank must join."""
+    placed = any(is_dtensor(v) for v in flatten(tree).values())
     snapshot = to_host(tree)
+    if placed and torch.distributed.get_rank() != 0:
+        return Pending(None, placed)
     t = threading.Thread(target=save, args=(root, step, snapshot), kwargs=kw,
                          daemon=True)
     t.start()
-    return t
+    return Pending(t, placed)
 
 
 def latest_step(root: str) -> Optional[int]:
@@ -171,6 +213,9 @@ def place(data: dict, target, device=None):
                 f"the restore target expects {tuple(like.shape)}; build "
                 f"the target with the writer's geometry and reshape after "
                 f"restoring")
+        if is_dtensor(like):
+            full = from_numpy(arr, dev or like.to_local().device)
+            return distribute(full, like.device_mesh, like.placements)
         if isinstance(like, torch.Tensor):
             return from_numpy(arr, dev or like.device)
         if isinstance(like, Leaf) and isinstance(like.dtype, torch.dtype):

@@ -72,7 +72,11 @@ def test_port_and_chip_smoke_import_no_jax_or_repro():
               "repro_torch.configs.sasrec", "repro_torch.configs.bert4rec",
               "repro_torch.data.graph", "repro_torch.models.dimenet",
               "repro_torch.configs.dimenet", "repro_torch.routing",
-              "repro_torch.sharding", "repro_torch.train.compression"):
+              "repro_torch.sharding", "repro_torch.train.compression",
+              "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+              "repro_torch.launch.hillclimb", "repro_torch.roofline.analyze",
+              "repro_torch.roofline.op_stats",
+              "repro_torch.roofline.report"):
         assert m in res["modules"]
 
 

@@ -8,10 +8,9 @@ The same stream, admission draws (the raw keys split from the
 reference's `PRNGKey(1)` with `core/prng.split`) and flow as
 `examples/recsys_admission.py`.  As there, all 8 fields are counted in
 ONE sketch, so equal raw ids of different fields share a key (and a
-count).  The counts line decodes the sketch's min states with the
-reference's float32 math (`CounterSpec.decode_xla`), so it prints the
-reference's integers on every device (torch's expm1 can land a state-1
-estimate an ulp above XLA's 0.99999988, which `int` would print as 1).
+count).  The counts line is `sk.query`, which decodes as the reference's
+`sk.query` does op by op, so it prints the reference's integers on every
+device (a state-1 estimate is 0.99999988, which `int` prints as 0).
 The weights come from a `torch.Generator` unless `params0` (a
 numpy tree, e.g. the reference's `init_tree(..., PRNGKey(0))`) is given.
 Runs on the GPU unless `--device cpu`; there the admission counts
@@ -97,7 +96,7 @@ def main(argv=None, params0=None) -> dict:
         print(f"{policy:10s} final BCE (last-10 mean) = {bce[policy]:.4f}")
 
     hot = torch.arange(16, device=dev).to(torch.uint32)
-    est = sketch.spec.counter.decode_xla(sk.query_state(sketch, hot))
+    est = sk.query(sketch, hot)
     counts = [int(x) for x in est.cpu()]
     print("\nsketch counts for the 16 hottest raw ids:", counts)
     table_line = (f"admission table: {A.table_rows} private rows + "

@@ -9,11 +9,14 @@ and `nfold` adds n events in one step: move n units in estimate space,
 then stochastically round back to a counter state (for n == 1 exactly the
 paper's increment with probability b^-c).
 
-Every float step is one float32 tensor op, in the reference's order, so
-the CUDA kernels (built with `-fmad=false`, no fast math) round exactly as
-these plain versions do on the card.  Constants are float32 0-dim tensors
-on the operand's device: torch turns a division by a Python scalar on CUDA
-into a multiplication by its reciprocal, which rounds differently.
+The float math is the reference's as XLA's CPU backend compiles it
+(`core/xla_f32.py`): the jitted graph by default, the op-by-op graph where
+the reference's call runs eagerly, so log cells and estimates equal the
+JAX package's bit for bit on any device, and the CUDA kernels compute the
+same graph (`kernels/csrc/xla_f32.cuh`).  Constants are float32 0-dim
+tensors on the operand's device: torch turns a division by a Python
+scalar on CUDA into a multiplication by its reciprocal, which rounds
+differently.
 
 Storage helpers: torch has only barebones support for uint16/uint32, so
 tables and rings keep their unsigned dtype (the reference's storage
@@ -107,7 +110,10 @@ def from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 
 _CONSTS: dict = {}
-_XLA_TABLES: dict = {}  # (CounterSpec, "decode" / "point_mass", device)
+_XLA_TABLES: dict = {}  # (CounterSpec, "em" / "pm" / "ep", device)
+_TABLE_MAX = 1 << 20
+_STATE_FNS = {"em": xla_f32.morris_em, "ep": xla_f32.morris_ep,
+              "pm": xla_f32.morris_pm}
 
 
 def f32_const(x: float, device) -> torch.Tensor:
@@ -178,81 +184,113 @@ class CounterSpec:
         """float32(b - 1): the decode denominator."""
         return f32(self.base - 1.0)
 
+    @property
+    def rbm1(self) -> float:
+        """float32(1 / bm1) as XLA folds it: the jitted decode's factor."""
+        return xla_f32.recip(self.bm1)
+
     # ---- estimate-space transforms (all float32, vectorized) ----
+    #
+    # Two graphs, as the reference computes them (`core/xla_f32.py`): the
+    # JITTED form (`decode`, `encode_floor`, `nfold`), which is what every
+    # reference path under `jax.jit` rounds to -- the kernels' interpret mode,
+    # the XLA engines (`update_xla`, `update_many`, `update_rows`,
+    # `update_score_rows`, the window reads), `lax.scan`'s `update_exact` and
+    # the sharded functions under `shard_map` -- and which the CUDA kernels
+    # compute; and the EAGER form (`decode_eager`, the re-encodes), what the
+    # reference's op-by-op calls round to: `merge(estimate_sum)`, `decay`, the
+    # decayed fold, and `core.sketch.query` / `update_batched` called outside
+    # jit, vmapped or not (`eager=True` on `nfold`).  `point_mass` and
+    # `increase_prob` are one exp each and the same in both.  Transcendentals
+    # of integral states are gathers from per-device tables (`_states`); only
+    # `log1p` of a value runs per element.
 
     def decode(self, state: torch.Tensor) -> torch.Tensor:
-        """Counter state -> unbiased event-count estimate (paper's VALUE)."""
-        return self._decode(state, torch.expm1)
-
-    def _decode(self, state: torch.Tensor, expm1) -> torch.Tensor:
+        """Counter state -> unbiased event-count estimate (paper's VALUE),
+        jitted form: expm1(s * logb) * f32(1 / bm1).  Integral states."""
         s = state.to(torch.float32)
         if self.kind == "linear":
             return s
-        dev = s.device
-        return expm1(s * f32_const(self.logb, dev)) / f32_const(
-            self.bm1, dev)
+        return self._states(s, "em") * f32_const(self.rbm1, s.device)
+
+    def decode_scaled(self, state: torch.Tensor, w: torch.Tensor
+                      ) -> torch.Tensor:
+        """decode(state) * w for a weight w that broadcasts as a scalar a
+        row (the window reads' bucket weight), jitted form: XLA
+        reassociates a log cell's (expm1(s logb) * f32(1 / bm1)) * w into
+        expm1(s logb) * (w * f32(1 / bm1)).  Weights and products are
+        flushed as XLA's CPU flushes denormals."""
+        s = state.to(torch.float32)
+        w = xla_f32.flush(w.to(torch.float32))
+        if self.kind == "linear":
+            return xla_f32.flush(s * w)
+        scale = xla_f32.flush(w * f32_const(self.rbm1, w.device))
+        return xla_f32.flush(self._states(s, "em") * scale)
+
+    def decode_eager(self, state: torch.Tensor) -> torch.Tensor:
+        """`decode` as the reference computes it op by op: expm1(s * logb)
+        / bm1, a true division.  What `merge(estimate_sum)`, `decay` and
+        the decayed fold decode with before `reencode_stochastic`."""
+        s = state.to(torch.float32)
+        if self.kind == "linear":
+            return s
+        return self._states(s, "em") / f32_const(self.bm1, s.device)
 
     def point_mass(self, state: torch.Tensor) -> torch.Tensor:
         """Value(c+1) - Value(c) = b^c: estimate mass of one state step."""
-        return self._point_mass(state, torch.exp)
-
-    def _point_mass(self, state: torch.Tensor, exp) -> torch.Tensor:
         s = state.to(torch.float32)
         if self.kind == "linear":
             return torch.ones_like(s)
-        return exp(s * f32_const(self.logb, s.device))
+        return self._states(s, "pm")
 
     def increase_prob(self, state: torch.Tensor) -> torch.Tensor:
         """P(IncreaseDecision(c)) = b^-c (paper Alg. 1); 1 for linear."""
         s = state.to(torch.float32)
         if self.kind == "linear":
             return torch.ones_like(s)
-        return torch.exp(-s * f32_const(self.logb, s.device))
+        return self._states(s, "ep")
 
     def encode_floor(self, value: torch.Tensor) -> torch.Tensor:
-        """Largest state c with Value(c) <= value (float32 in, float32 out)."""
-        return self._encode_floor(value, torch.log1p, self.decode)
-
-    def _encode_floor(self, value: torch.Tensor, log1p,
-                      decode) -> torch.Tensor:
+        """Largest state c with Value(c) <= value (float32 in, float32
+        out), jitted form (`xla_f32.morris_encode_floor`)."""
         v = value.to(torch.float32)
         if self.kind == "linear":
             return torch.floor(v)
+        return xla_f32.morris_encode_floor(v, self.logb, self.bm1, self._em)
+
+    def _encode_floor_eager(self, v: torch.Tensor) -> torch.Tensor:
+        """`encode_floor` op by op: floor(log1p(v * bm1) / logb), less one
+        where decode_eager of it exceeds v + 1e-6 * max(v, 1)."""
         dev = v.device
-        c = torch.floor(log1p(v * f32_const(self.bm1, dev))
+        c = torch.floor(xla_f32.log1p(v * f32_const(self.bm1, dev))
                         / f32_const(self.logb, dev))
         # guard float roundoff: never let Value(c) exceed v by a full step
-        too_high = decode(c) > v + f32_const(
+        too_high = self.decode_eager(c) > v + f32_const(
             1e-6, dev) * torch.clamp_min(v, 1.0)
         return torch.clamp_min(c - too_high.to(torch.float32), 0.0)
 
-    # ---- the re-encoding algebra, in the reference's float32 math ----
+    def _em(self, s: torch.Tensor) -> torch.Tensor:
+        return self._states(s, "em")
 
-    def decode_xla(self, state: torch.Tensor) -> torch.Tensor:
-        """`decode` of integral states rounded as the reference's (XLA's
-        CPU) expm1 rounds (`xla_f32`): what `merge(estimate_sum)`, `decay`
-        and the decayed fold decode with before `reencode_stochastic`."""
-        return self._xla_tabled(state, "decode")
+    def _ep(self, s: torch.Tensor) -> torch.Tensor:
+        return self._states(s, "ep")
 
-    def _xla_tabled(self, state: torch.Tensor, which: str) -> torch.Tensor:
-        """`decode` or `point_mass` of integral states in `xla_f32`'s math,
-        gathered from a table of every state from 0 up to where XLA's exp
-        clamps its argument (88.8; past it neither value changes), built
-        once per device.  Negative states read state 0: the floor's
-        clamp at 0 makes that the same re-encode."""
-        if self.kind == "linear":
-            s = state.to(torch.float32)
-            return s if which == "decode" else torch.ones_like(s)
-        dev = state.device
+    def _states(self, s: torch.Tensor, which: str) -> torch.Tensor:
+        """expm1(s logb) ("em"), exp(s logb) ("pm") or exp(-(s logb))
+        ("ep") of integral float32 states s >= 0 in `xla_f32`'s math.
+        Gathered from a table of every state up to where XLA's exp clamps
+        its argument (88.8; past it no value changes), built once per
+        device; computed where that table would pass 2^20 entries."""
+        dev = s.device
         key = (self, which, str(dev))
         table = _XLA_TABLES.get(key)
         if table is None:
-            s = torch.arange(math.ceil(88.8 / self.logb) + 2,
-                             dtype=torch.float32, device=dev)
-            table = _XLA_TABLES[key] = (
-                self._decode(s, xla_f32.expm1) if which == "decode"
-                else self._point_mass(s, xla_f32.exp))
-        idx = state.to(torch.float32).clamp(0, table.numel() - 1)
+            size = math.ceil(88.8 / self.logb) + 2
+            if size > _TABLE_MAX:
+                return _STATE_FNS[which](s, self.logb)
+            states = torch.arange(size, dtype=torch.float32, device=dev)
+            table = _XLA_TABLES[key] = _STATE_FNS[which](states, self.logb)
+        idx = s.clamp(0, table.numel() - 1)
         return table[idx.to(torch.int64)]
 
     def reencode_stochastic(self, value: torch.Tensor,
@@ -265,16 +303,18 @@ class CounterSpec:
         `rng` is a raw threefry key: one uniform a cell of `value`'s
         shape (`prng.uniform`, JAX's draw bit for bit).  With rng None the
         floor state is returned.  Returns float32 states (float32 rounds
-        CMS32 states past 2^24, as the reference does).  Its expm1, exp
-        and log1p are `xla_f32`'s, so the states equal the reference's.
+        CMS32 states past 2^24, as the reference does).  Eager form: its
+        callers run op by op in the reference.
         """
         from repro_torch.core import prng  # prng imports this module
 
         v = value.to(torch.float32)
-        s = self._encode_floor(v, xla_f32.log1p, self.decode_xla)
+        if self.kind == "linear":
+            s = torch.floor(v)
+        else:
+            s = self._encode_floor_eager(v)
         if rng is not None:
-            frac = ((v - self.decode_xla(s))
-                    / self._xla_tabled(s, "point_mass"))
+            frac = (v - self.decode_eager(s)) / self.point_mass(s)
             u = prng.uniform(rng, tuple(s.shape), device=s.device)
             s = s + (u < frac).to(torch.float32)
         return torch.clamp(s, 0.0, float(self.max_state))
@@ -286,13 +326,15 @@ class CounterSpec:
         return torch.clamp_max(states.to(torch.int64), self.max_state)
 
     def nfold(self, state: torch.Tensor, n: torch.Tensor,
-              uniform: torch.Tensor) -> torch.Tensor:
+              uniform: torch.Tensor, eager: bool = False) -> torch.Tensor:
         """Add n >= 0 events to counter `state` in one step.
 
         Unbiased in estimate space; for n == 1 exactly the paper's
         probabilistic increment.  `uniform` ~ U[0,1) drives the stochastic
         rounding.  `state` holds int64 cell values (or the cell dtype);
-        returns int64 new states, saturating at max_state.
+        returns int64 new states, saturating at max_state.  A log counter
+        runs the jitted graph (`xla_f32.morris_nfold`), or with `eager`
+        the reference's op-by-op one.
         """
         n = n.to(torch.float32)
         if self.kind == "linear":
@@ -307,9 +349,14 @@ class CounterSpec:
             add_u = torch.minimum(add_f.to(torch.int64) + bump, room)
             return s_u + add_u
         s = to_i64(state).to(torch.float32)
-        v2 = self.decode(s) + n
-        c2 = torch.maximum(self.encode_floor(v2), s)  # monotone
-        frac = (v2 - self.decode(c2)) / self.point_mass(c2)
+        if not eager:
+            return xla_f32.morris_nfold(s, n, uniform, self.logb, self.bm1,
+                                        self.max_state, self._em,
+                                        self._ep).to(torch.int64)
+        n = xla_f32.flush(n)
+        v2 = self.decode_eager(s) + n
+        c2 = torch.maximum(self._encode_floor_eager(v2), s)  # monotone
+        frac = (v2 - self.decode_eager(c2)) / self.point_mass(c2)
         inc = (uniform < frac).to(torch.float32)
         new = torch.where(n > 0, c2 + inc, s)
         new = torch.clamp(new, 0.0, float(self.max_state))

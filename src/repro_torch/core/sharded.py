@@ -23,7 +23,10 @@ cell states widened to int32 (int64 for 32-bit cells) and repacks, as the
 reference unpacks packed lanes around `pmax` (a max over packed lanes is
 not the per-cell max).
 
-`tier_assemble` rebuilds a tiered plane's tenant-ordered stack.
+The reference runs these functions inside `shard_map`, so under
+`jax.jit`: the updates take the jitted float graph (`eager=False`), and
+reads go through `ops.query` and the window-query kernels, which compute
+it.  `tier_assemble` rebuilds a tiered plane's tenant-ordered stack.
 """
 from __future__ import annotations
 
@@ -86,7 +89,7 @@ def lazy_update(sketch: sk.Sketch, keys, rng, step: int, merge_every: int,
     """Local update, plus the fleet merge on every `merge_every`-th step
     (`step` is the replicated host step counter, so every rank takes the
     same branch and the collective runs only when it merges)."""
-    sketch = sk.update_batched(sketch, keys, rng)
+    sketch = sk.update_batched(sketch, keys, rng, eager=False)
     return pmax_merge(sketch, group) if _merge_step(step, merge_every) \
         else sketch
 
@@ -134,7 +137,7 @@ def lazy_update_window(win, keys, rng, step: int, merge_every: int,
     """Windowed `lazy_update`: a local active-bucket update plus the
     periodic bucket-wise fleet merge."""
     from repro_torch.stream import window as w  # stream imports core
-    win = w.window_update(win, keys, rng)
+    win = w.window_update(win, keys, rng, eager=False)
     return pmax_merge_window(win, group) if _merge_step(step, merge_every) \
         else win
 
@@ -197,7 +200,8 @@ def routed_update(local: sk.Sketch, keys, rng, capacity: int,
     """Update this rank's partition of a key-routed sketch with the keys
     every rank routes to it."""
     flat, _, _, _ = _received(local.table.device, keys, capacity, group)
-    return sk.update_batched(local, flat, rng, weights=_valid_weights(flat))
+    return sk.update_batched(local, flat, rng, weights=_valid_weights(flat),
+                             eager=False)
 
 
 def _route_estimates_back(est: torch.Tensor, recv_keys: torch.Tensor,
@@ -251,7 +255,8 @@ def routed_window_update(win, keys, rng, capacity: int, group=None,
                              "epoch=...)")
         win = w.window_advance_steps(win, max(int(epoch) - win.epoch, 0))
     flat, _, _, _ = _received(win.tables.device, keys, capacity, group)
-    return w.window_update(win, flat, rng, weights=_valid_weights(flat))
+    return w.window_update(win, flat, rng, weights=_valid_weights(flat),
+                           eager=False)
 
 
 def _gathered_candidates(tracker: topk.TopK, group=None):

@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import prng, xla_f32
 from repro_torch.core.counters import (CounterSpec, f32_const, from_i64,
                                        pack_table, to_i64, unpack_table,
                                        zeros)
@@ -161,9 +161,15 @@ def query_state(sketch: Sketch, keys: torch.Tensor) -> torch.Tensor:
     return table[rows, cols].min(dim=0).values
 
 
-def query(sketch: Sketch, keys: torch.Tensor) -> torch.Tensor:
-    """Estimated event counts (paper's VALUE of the min state), float32."""
-    return sketch.spec.counter.decode(query_state(sketch, keys))
+def query(sketch: Sketch, keys: torch.Tensor, eager: bool = True
+          ) -> torch.Tensor:
+    """Estimated event counts (paper's VALUE of the min state), float32.
+    Decoded as the reference's `sk.query` rounds when called op by op
+    (its callers: `admit`, `topk.refresh`, the estimators, the admission
+    "xla" engine), or with `eager=False` as under `jax.jit`."""
+    counter = sketch.spec.counter
+    state = query_state(sketch, keys)
+    return counter.decode_eager(state) if eager else counter.decode(state)
 
 
 def query_stacked(tables: torch.Tensor, spec: SketchSpec, keys: torch.Tensor
@@ -212,20 +218,21 @@ def dedup_weighted(keys: torch.Tensor, weights: torch.Tensor
 
 def conservative_update_(cells: torch.Tensor, keys: torch.Tensor,
                          mult: torch.Tensor, uniforms: torch.Tensor,
-                         row_seeds: torch.Tensor, counter: CounterSpec
-                         ) -> None:
+                         row_seeds: torch.Tensor, counter: CounterSpec,
+                         eager: bool = False) -> None:
     """One batch of the conservative update on R logical tables at once.
 
     cells (R, d, w) int64, updated in place; keys/mult/uniforms (R, n).
     Every key reads the minima from before the batch; writes land by
-    scatter-max (mult == 0 writes state 0, a no-op under max).
+    scatter-max (mult == 0 writes state 0, a no-op under max).  `nfold`
+    in the jitted graph (the kernels' and the XLA engines'), or eager.
     """
     r, d, w = cells.shape
     cols = row_hashes(keys, row_seeds, w)                     # (d, R, n)
     ri = torch.arange(r, device=cells.device).reshape(1, -1, 1)
     di = torch.arange(d, device=cells.device).reshape(-1, 1, 1)
     cmin = cells[ri, di, cols].min(dim=0).values              # (R, n)
-    new = counter.nfold(cmin, mult, uniforms)
+    new = counter.nfold(cmin, mult, uniforms, eager=eager)
     write = torch.where(mult > 0, new, torch.zeros_like(new))
     flat_idx = (di * w + cols).permute(1, 0, 2).reshape(r, -1)
     src = write.unsqueeze(1).expand(r, d, -1).reshape(r, -1)
@@ -234,7 +241,7 @@ def conservative_update_(cells: torch.Tensor, keys: torch.Tensor,
 
 def update_batched(sketch: Sketch, keys: torch.Tensor, rng,
                    weights: torch.Tensor | None = None,
-                   damp_alpha: float = 0.0) -> Sketch:
+                   damp_alpha: float = 0.0, eager: bool = True) -> Sketch:
     """Batch conservative update (sort -> dedup -> n-fold -> scatter-max)
     in ONE step: keys (N,) raw events, `rng` a raw threefry key whose
     uniforms (`prng.uniform(rng, (N,))`) drive the stochastic rounding.
@@ -247,6 +254,11 @@ def update_batched(sketch: Sketch, keys: torch.Tensor, rng,
     ((V(min) + 1) / (V(2nd min) + 1)) ** damp_alpha over its d cells:
     the paper's §4 "probabilistic update rule" prototype, biased by
     construction.
+
+    `eager`: the float graph of the reference's call, op by op (as its
+    window updates, `ops.update`'s fallback and direct callers run it)
+    or under `jax.jit` (`eager=False`: `launch/train --sketch`, the
+    sharded updates).
     """
     spec = sketch.spec
     dev = sketch.table.device
@@ -257,24 +269,27 @@ def update_batched(sketch: Sketch, keys: torch.Tensor, rng,
     cells = logical_table(sketch.table, spec)[None]
     if damp_alpha > 0.0 and spec.depth >= 2:
         mult = mult * _damping(cells[0], sk_keys, sketch.row_seeds,
-                               spec.counter, damp_alpha)
+                               spec.counter, damp_alpha, eager)
     u = prng.uniform(rng, (keys.shape[0],), device=dev)
     conservative_update_(cells, sk_keys[None], mult[None], u[None],
-                         sketch.row_seeds, spec.counter)
+                         sketch.row_seeds, spec.counter, eager)
     return Sketch(table=storage_table(cells[0], spec), spec=spec)
 
 
 def _damping(cells: torch.Tensor, keys: torch.Tensor, row_seeds,
-             counter: CounterSpec, alpha: float) -> torch.Tensor:
+             counter: CounterSpec, alpha: float, eager: bool) -> torch.Tensor:
     """((decode(s0) + 1) / (decode(s1) + 1)) ** alpha per key, s0 <= s1
-    the two smallest of its d cells (a float32 pow, as the reference's
-    `** alpha` with a float exponent)."""
+    the two smallest of its d cells.  `** alpha` is XLA's float32 power
+    op by op, the C library's `powf` (`xla_f32.pow_host`, a round trip
+    through the host: the damped update is a prototype, and the reference
+    runs it only eagerly)."""
     cols = row_hashes(keys, row_seeds, cells.shape[-1])          # (d, N)
     rows = torch.arange(cells.shape[0], device=cells.device)[:, None]
     srt = torch.sort(cells[rows, cols], dim=0).values
     one = f32_const(1.0, cells.device)
-    ratio = (counter.decode(srt[0]) + one) / (counter.decode(srt[1]) + one)
-    return torch.pow(ratio, f32_const(alpha, cells.device))
+    decode = counter.decode_eager if eager else counter.decode
+    ratio = (decode(srt[0]) + one) / (decode(srt[1]) + one)
+    return xla_f32.pow_host(ratio, alpha)
 
 
 def update_exact(sketch: Sketch, keys, rng) -> Sketch:
@@ -341,7 +356,7 @@ def merge(a: Sketch, b: Sketch, mode: str = "max", rng=None) -> Sketch:
     if mode == "max":
         table = torch.maximum(ta, tb)
     elif mode == "estimate_sum":
-        v = c.decode_xla(ta) + c.decode_xla(tb)
+        v = c.decode_eager(ta) + c.decode_eager(tb)
         table = c.cells(c.reencode_stochastic(v, rng))
     else:
         raise ValueError(f"unknown merge mode {mode!r}")

@@ -1,34 +1,52 @@
-"""float32 exp, expm1, tanh, log and log1p as XLA's CPU backend computes
-them, bit for bit.
+"""float32 math as XLA's CPU backend compiles the reference's, bit for bit.
 
-The reference's re-encoding algebra (`merge(mode="estimate_sum")`,
-`decay`, the decayed fold) rounds through `jnp.expm1`, `jnp.exp` and
-`jnp.log1p`, which XLA's CPU backend lowers to its own polynomial
+The reference's counter arithmetic rounds through `jnp.expm1`, `jnp.exp`
+and `jnp.log1p`, which XLA's CPU backend lowers to its own polynomial
 approximations (Cephes `expf` / `logf`, XLA's rational `tanh` and
 `log1p`) with every single-use multiply feeding an add fused into one
 FMA.  torch's float32 functions (glibc / SLEEF on the CPU, libdevice on
-CUDA) round differently on about one state value in forty, which moved
-log cells of those ops one state off the reference.  These replicas
-follow the same operation graph, constant for constant, so they equal
-`jnp` on every input that `tools/xla_f32_check.py` walks (every CMLS16
-and CMLS8 state, every float32 of `log1p`'s re-encode domain).  Outside
-those domains two things differ: denormal inputs, which XLA's CPU
-flushes to zero, and the sign bit of a NaN.
+CUDA) round differently on about one state value in forty.  `exp`,
+`expm1`, `tanh`, `log` and `log1p` here follow the same operation graph,
+constant for constant, so they equal `jnp` on every input that
+`tools/xla_f32_check.py` walks (every CMLS16 and CMLS8 state, every
+float32 of `log1p`'s re-encode domain); a NaN's sign bit may differ.
+
+The reference's paths do not all compile one graph.  Called op by op
+(eagerly) `CounterSpec.decode` is `expm1(s * logb) / (b - 1)`, each op
+rounded alone.  Under `jax.jit` (the kernels' interpret mode, the XLA
+engines, `lax.scan`), XLA's algebraic simplifier turns a division by a
+constant into a multiplication by its float32 reciprocal and
+`a / exp(x)` into `a * exp(-x)`, and LLVM contracts each single-use
+multiply into the add that consumes it.  The `morris_*` functions below
+are that jitted graph, read from the dumped IR of the reference's
+`jax.jit(CounterSpec.nfold)` and checked against its update, query and
+window paths (`XLA_FLAGS=--xla_dump_to=DIR`; the `*.ir-with-opt.ll` and
+`*cpu_after_optimizations.txt` files name every `fmul`, `fdiv` and
+FMA).  `pow` is XLA's `**` of float32 operands: a call of the C
+library's `powf`.
+
+XLA's CPU also runs with denormals flushed to zero, inputs and results.
+On the counter paths the one denormal that can arrive is an input weight
+n, so `morris_nfold` flushes it (`flush`); the window weights and their
+products with an estimate are flushed where they are made
+(`stream/window.py`, the window reads).
 
 They are plain torch elementwise ops and give the same bits on any
 device: an FMA is computed exactly as a float64 product (exact for
 float32 operands) plus a float64 sum, rounded to odd and then to
 float32, which is one correctly rounded rounding (on the CPU the
 round-to-odd step is skipped when no sum sits on a float32 tie, where
-it changes nothing).  Only the re-encoding
-path (`CounterSpec.reencode_stochastic` and the `*_xla` transforms its
-callers decode with) uses them; the kernels and their plain versions
-keep torch's `expm1` / `exp` / `log1p`.
+it changes nothing).  The CUDA kernels compute the same graph in
+`kernels/csrc/xla_f32.cuh`, FMA for FMA.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 
+import numpy as np
 import torch
 
 _F32 = torch.float32
@@ -182,3 +200,106 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     q = _horner_fma(x, _LOG1P_NUM) / den
     small = x + fma(x2, -0.5, (x * x2) * q)
     return torch.where(x.abs() < _c(_LOG1P_SMALL, x), small, large)
+
+
+# ---- the jitted counter graph (`CounterSpec`'s forms under jax.jit) ----
+
+def recip(x: float) -> float:
+    """float32(1) / float32(x) rounded to float32: the constant XLA folds
+    a division by float32(x) into."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """x with float32 denormals replaced by a zero of their sign, as XLA's
+    CPU (flush-to-zero, denormals-are-zero) reads them."""
+    return torch.where(x.abs() < _c(_MIN_NORM, x), x * 0.0, x)
+
+
+def morris_em(s: torch.Tensor, logb: float) -> torch.Tensor:
+    """expm1(s * logb) of float32 states: the decode's transcendental."""
+    return expm1(s * _c(logb, s))
+
+
+def morris_pm(s: torch.Tensor, logb: float) -> torch.Tensor:
+    """exp(s * logb) of float32 states: b^s, the point mass."""
+    return exp(s * _c(logb, s))
+
+
+def morris_ep(s: torch.Tensor, logb: float) -> torch.Tensor:
+    """exp(-(s * logb)) of float32 states: b^-s, the increase probability
+    and (as a factor) the jitted graph's division by the point mass."""
+    return exp(-(s * _c(logb, s)))
+
+
+def morris_encode_floor(v: torch.Tensor, logb: float, bm1: float, em
+                        ) -> torch.Tensor:
+    """Jitted `encode_floor` of float32 v: floor(log1p(v * bm1) *
+    f32(1 / logb)), less one where decode of it exceeds
+    fma(max(v, 1), 1e-6, v).  `em(c)`: `morris_em` of integral c."""
+    c = torch.floor(log1p(v * _c(bm1, v)) * _c(recip(logb), v))
+    limit = fma(torch.clamp_min(v, 1.0), 1e-6, v)
+    too_high = em(c) * _c(recip(bm1), v) > limit
+    return torch.clamp_min(c - too_high.to(_F32), 0.0)
+
+
+def morris_nfold(s: torch.Tensor, n: torch.Tensor, u: torch.Tensor,
+                 logb: float, bm1: float, max_state: int, em, ep
+                 ) -> torch.Tensor:
+    """Jitted `nfold` of a log counter: float32 states s, weights n and
+    uniforms u -> float32 new states.  `em(c)` / `ep(c)`: `morris_em` /
+    `morris_ep` of integral c (a table gather or the functions)."""
+    n = flush(n)
+    rbm1 = recip(bm1)
+    v2 = fma(em(s), rbm1, n)
+    c2 = torch.maximum(morris_encode_floor(v2, logb, bm1, em), s)
+    frac = fma(-em(c2), rbm1, v2) * ep(c2)
+    new = torch.where(n > 0, c2 + (u < frac).to(_F32), s)
+    return torch.clamp(new, 0.0, float(max_state))
+
+
+@functools.lru_cache(maxsize=None)
+def _powf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    f = libm.powf
+    f.restype = ctypes.c_float
+    f.argtypes = [ctypes.c_float, ctypes.c_float]
+    return f
+
+
+def _flush_np(x: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, np.float32)
+    return np.where(np.abs(x) < np.float32(_MIN_NORM), x * np.float32(0), x)
+
+
+def _powf_each(bases, y: float) -> np.ndarray:
+    powf = _powf()
+    y = float(np.float32(y))
+    return _flush_np([powf(float(b), y) for b in _flush_np(bases)])
+
+
+@functools.lru_cache(maxsize=1024)
+def _pow_row(g: float, top: int) -> np.ndarray:
+    powf = _powf()
+    return _flush_np([powf(g, float(a)) for a in range(top)])
+
+
+def pow(g: float, ages: np.ndarray) -> np.ndarray:
+    """`jnp.float32(g) ** ages` for integral ages >= 0 (the window
+    weights): XLA's CPU calls the C library's `powf` for a float32
+    `power` (its IR holds `llvm.pow.f32`), and flushes a denormal result.
+    Host numpy in and out; one `powf` per age below the largest, cached
+    per g."""
+    ages = np.asarray(ages)
+    top = int(ages.max(initial=-1)) + 1
+    return _pow_row(float(np.float32(g)), top)[ages.astype(np.int64)]
+
+
+def pow_host(x: torch.Tensor, y: float) -> torch.Tensor:
+    """`x ** y` of a float32 tensor and a float exponent as XLA's CPU runs
+    it op by op (`powf`, denormals flushed), through the host: one
+    `powf` per distinct value of x."""
+    host = x.detach().to("cpu", torch.float32).numpy()
+    uniq, inv = np.unique(host, return_inverse=True)
+    out = _powf_each(uniq, y)[inv].reshape(host.shape)
+    return torch.from_numpy(out).to(x.device)

@@ -78,3 +78,38 @@ def profile(tokens: np.ndarray) -> dict:
                             "distinct_bigrams": 183_000,
                             "distinct_total": 233_000},
     }
+
+
+def documents(tokens: np.ndarray, spec: CorpusSpec):
+    """Iterate fixed-length documents of `spec.doc_len` tokens (TF-IDF and
+    per-document statistics); a short tail is dropped."""
+    for i in range(0, len(tokens) - spec.doc_len + 1, spec.doc_len):
+        yield tokens[i:i + spec.doc_len]
+
+
+def calibrate(n_tokens: int = 500_000, target_unigrams: int = 50_000,
+              target_bigrams: int = 183_000, iters: int = 10) -> CorpusSpec:
+    """Nested bisection of (zipf_s, p_copy) to hit the paper's profile:
+    for each p_copy, bisect zipf_s until the distinct unigrams reach
+    `target_unigrams`, then move p_copy by the distinct bigrams.  Fixed
+    `CorpusSpec`'s defaults once; kept for reproducibility."""
+    p_lo, p_hi = 0.0, 0.7
+    best = CorpusSpec()
+    for _ in range(iters):
+        p = 0.5 * (p_lo + p_hi)
+        s_lo, s_hi = 0.3, 1.6
+        for _ in range(iters):
+            s = 0.5 * (s_lo + s_hi)
+            spec = CorpusSpec(n_tokens=n_tokens, zipf_s=s, p_copy=p)
+            if np.unique(generate(spec)).size > target_unigrams:
+                s_lo = s  # more skew, fewer distinct
+            else:
+                s_hi = s
+        spec = CorpusSpec(n_tokens=n_tokens, zipf_s=0.5 * (s_lo + s_hi),
+                          p_copy=p)
+        if profile(generate(spec))["distinct_bigrams"] > target_bigrams:
+            p_lo = p  # more copying, fewer distinct
+        else:
+            p_hi = p
+        best = spec
+    return best

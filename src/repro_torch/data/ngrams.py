@@ -29,11 +29,21 @@ def bigram_keys_np(tokens: np.ndarray) -> np.ndarray:
                     + _mix(b ^ np.uint32(0x85EB_CA6B)))
 
 
+def unigram_keys_np(tokens: np.ndarray, vocab_size: int) -> np.ndarray:
+    """uint32 key of every unigram occurrence: its token id (below 2^20,
+    far from the mixed bigram keys), so both kinds share one sketch as
+    the paper counts them.  `vocab_size` is accepted and unused, as in
+    the reference."""
+    del vocab_size
+    return tokens.astype(np.uint32)
+
+
 def event_stream(tokens: np.ndarray) -> np.ndarray:
-    """The paper's update stream: every unigram occurrence (its token id,
-    below 2^20) then every bigram occurrence (a mixed key), in one
-    sketch as the paper counts both kinds in one structure."""
-    return np.concatenate([tokens.astype(np.uint32), bigram_keys_np(tokens)])
+    """The paper's update stream: every unigram occurrence then every
+    bigram occurrence, in one sketch as the paper counts both kinds in
+    one structure."""
+    return np.concatenate([unigram_keys_np(tokens, 0),
+                           bigram_keys_np(tokens)])
 
 
 def exact_counts(keys: np.ndarray):

@@ -9,8 +9,8 @@ source compiles in its own `nvcc` process, all started together, then
 one link step makes the library.
 
 Flags: sm_90a, -O3, and -fmad=false without fast math, so each float
-operation in a kernel rounds as torch's separate CUDA ops do (see
-`csrc/common.cuh`).
+operation in a kernel rounds once, as written, and an FMA is only where a
+kernel writes `__fmaf_rn` (the reference's graph, `csrc/xla_f32.cuh`).
 """
 from __future__ import annotations
 
@@ -33,38 +33,41 @@ _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
 SIGNATURES = {
     # tables, t, depth, words_per_row, keys, n, out, seeds, width, bits,
-    # log, max_state, logb, bm1, stream
+    # log, max_state, logb, bm1, rlogb, rbm1, stream
     "cml_fused_query": [_P, _I, _I, _I, _P, _I, _P, _P, _U, _I, _I, _U, _F,
-                        _F, _P],
+                        _F, _F, _F, _P],
     # tables, depth, words_per_row, rows, urows, r, keys, mult, n, k1, k2,
-    # cand, est, m, seeds, width, bits, log, max_state, logb, bm1, stream;
-    # rows / urows: host int64 (r,) table rows and uniform-grid rows, passed
-    # on to the kernels by value; (k1, k2): the flush's threefry key
+    # cand, est, m, seeds, width, bits, log, max_state, logb, bm1, rlogb,
+    # rbm1, stream; rows / urows: host int64 (r,) table rows and
+    # uniform-grid rows, passed on to the kernels by value; (k1, k2): the
+    # flush's threefry key
     "cml_fused_update_score": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _U, _U,
-                               _P, _P, _I, _P, _U, _I, _I, _U, _F, _F, _P],
+                               _P, _P, _I, _P, _U, _I, _I, _U, _F, _F, _F,
+                               _F, _P],
     # tables, depth, words_per_row, rows, r, keys, mult, unif, n, seeds,
-    # width, bits, log, max_state, logb, bm1, stream; rows: host int64 (r,),
-    # passed on to the kernel by value
+    # width, bits, log, max_state, logb, bm1, rlogb, rbm1, stream; rows:
+    # host int64 (r,), passed on to the kernel by value
     "cml_fused_update_rows": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _U,
-                              _I, _I, _U, _F, _F, _P],
+                              _I, _I, _U, _F, _F, _F, _F, _P],
     # tables, depth, words_per_row, rows, urows, t, keys, mult, n, k1, k2,
-    # seeds, width, bits, log, max_state, logb, bm1, stream; rows: host
-    # int64 0 .. t-1, urows as above
+    # seeds, width, bits, log, max_state, logb, bm1, rlogb, rbm1, stream;
+    # rows: host int64 0 .. t-1, urows as above
     "cml_fused_update": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _U, _U, _P, _U,
-                         _I, _I, _U, _F, _F, _P],
+                         _I, _I, _U, _F, _F, _F, _F, _P],
     # the first two window queries: tables, r, buckets, depth,
     # words_per_row, keys, key_stride (0: one key row for every ring), n,
     # weights, out, mode_max, seeds, width, bits, log, max_state, logb, bm1,
-    # stream
+    # rlogb, rbm1, stream
     **{name: [_P, _I, _I, _I, _I, _P, ctypes.c_int64, _I, _P, _P, _I, _P,
-              _U, _I, _I, _U, _F, _F, _P]
+              _U, _I, _I, _U, _F, _F, _F, _F, _P]
        for name in ("cml_window_query", "cml_window_query_stacked")},
     # the row-mapped one: tables, r, buckets, depth, words_per_row, rows,
     # keys, n, weights, out, mode_max, seeds, width, bits, log, max_state,
-    # logb, bm1, stream; rows: host int64 (r,), passed on to the kernel by
-    # value
+    # logb, bm1, rlogb, rbm1, stream; rows: host int64 (r,), passed on to
+    # the kernel by value
     "cml_window_query_stacked_rows": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                                      _I, _P, _U, _I, _I, _U, _F, _F, _P],
+                                      _I, _P, _U, _I, _I, _U, _F, _F, _F,
+                                      _F, _P],
     # queue, capw, keys, r, n, meta, stream; meta: host int64 (3, r) rows /
     # fill / count, passed on to the kernel by value
     "cml_queue_append": [_P, _I, _P, _I, _I, _P, _P],

@@ -1,11 +1,14 @@
 // Shared device code of the sketch kernels: hashing, cell addressing and
 // the counter arithmetic.
 //
-// Build with -fmad=false and without fast math: every float step below is
-// one IEEE-rounded float32 operation in the order of the plain PyTorch
-// version (repro_torch/core/counters.py), and expm1f/log1pf/expf come from
-// the same CUDA math library torch's own elementwise kernels call, so a
-// kernel and its plain version land equal cell states on the card.
+// The counter arithmetic is the reference's jitted graph (xla_f32.cuh,
+// repro_torch/core/xla_f32.py `morris_*`): XLA's CPU exp / expm1 / log1p
+// polynomials, the float32 reciprocals 1 / (b - 1) and 1 / log b that XLA
+// folds divisions into, and FMAs exactly where XLA's LLVM contracts.  The
+// build is -fmad=false without fast math, so every other float step is one
+// IEEE-rounded float32 operation; a kernel, its plain version on either
+// device and the JAX package on the CPU land equal cell states and equal
+// estimates, bit for bit.
 //
 // Cell addressing: a table row is read as 32-bit words.  A `BITS`-wide cell
 // at logical column c sits in word c / (32 / BITS) at bit offset
@@ -17,6 +20,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "xla_f32.cuh"
 
 #define CML_MAX_DEPTH 8
 // Rows one ring-append launch carries by value (queue_append.cu): 1,024
@@ -50,6 +55,8 @@ struct Counter {
   uint32_t max_state;  // (1 << bits) - 1
   float logb;          // float32(log b)
   float bm1;           // float32(b - 1)
+  float rlogb;         // float32(1) / logb, rounded to float32
+  float rbm1;          // float32(1) / bm1, rounded to float32
 };
 
 __device__ __forceinline__ uint32_t cml_mix32(uint32_t x) {
@@ -82,22 +89,71 @@ __device__ __forceinline__ uint32_t cml_word_index(uint32_t col) {
   return col / (32 / BITS);
 }
 
+// expm1(s log b) of a state: decode(s) before its factor 1 / (b - 1).
+__device__ __forceinline__ float cml_em(float s, const Counter& c) {
+  return xla_f32::expm1(s * c.logb);
+}
+
+// exp(-(s log b)) = b^-s: the jitted graph's division by the point mass.
+__device__ __forceinline__ float cml_ep(float s, const Counter& c) {
+  return xla_f32::exp(-(s * c.logb));
+}
+
 __device__ __forceinline__ float cml_decode_f(float s, const Counter& c) {
   if (!c.log) return s;
-  return expm1f(s * c.logb) / c.bm1;
+  return cml_em(s, c) * c.rbm1;
 }
 
 __device__ __forceinline__ float cml_decode(uint32_t s, const Counter& c) {
   return cml_decode_f((float)s, c);
 }
 
-// Largest state whose value does not exceed v (log cells only).
-__device__ __forceinline__ float cml_encode_floor(float v, const Counter& c) {
-  float cs = floorf(log1pf(v * c.bm1) / c.logb);
-  float slack = 1e-6f * fmaxf(v, 1.0f);
-  float limit = v + slack;
-  float too_high = (cml_decode_f(cs, c) > limit) ? 1.0f : 0.0f;
+// A window read's bucket weight as the reference's jitted graph applies it
+// to a log cell: (expm1(s log b) * 1 / (b - 1)) * w is reassociated into
+// expm1(s log b) * (w * 1 / (b - 1)), the scalar product made once a
+// bucket.  Weights and products are flushed as XLA's CPU flushes a
+// denormal.
+__device__ __forceinline__ float cml_weight_scale(float w, const Counter& c) {
+  w = xla_f32::flush(w);
+  return c.log ? xla_f32::flush(w * c.rbm1) : w;
+}
+
+// decode(s) * w, with ws = cml_weight_scale(w).
+__device__ __forceinline__ float cml_decode_scaled(uint32_t s, float ws,
+                                                   const Counter& c) {
+  const float d = c.log ? cml_em((float)s, c) : (float)s;
+  return xla_f32::flush(d * ws);
+}
+
+// Largest state whose value does not exceed v (log cells only); `dec(c)`:
+// decode of the integral float state c.
+template <typename Dec>
+__device__ __forceinline__ float cml_encode_floor(float v, const Counter& c,
+                                                  Dec dec) {
+  const float cs = floorf(xla_f32::log1p(v * c.bm1) * c.rlogb);
+  const float limit = __fmaf_rn(fmaxf(v, 1.0f), 0x1.0c6f7ap-20f, v);  // 1e-6
+  const float too_high = (dec(cs) > limit) ? 1.0f : 0.0f;
   return fmaxf(cs - too_high, 0.0f);
+}
+
+// Add n >= 0 events to a log cell in one step (counters.py `nfold`,
+// xla_f32.py `morris_nfold`).  `em(c)` / `ep(c)`: cml_em / cml_ep of the
+// integral float state c (a table read or the functions).
+template <typename Em, typename Ep>
+__device__ __forceinline__ uint32_t cml_nfold_log(uint32_t state, float n,
+                                                  float u, const Counter& c,
+                                                  Em em, Ep ep) {
+  n = xla_f32::flush(n);
+  const float s = (float)state;
+  const float v2 = __fmaf_rn(em(s), c.rbm1, n);
+  const float cs = cml_encode_floor(
+      v2, c, [&](float x) { return em(x) * c.rbm1; });
+  const float c2 = fmaxf(cs, s);
+  const float frac = __fmaf_rn(-em(c2), c.rbm1, v2) * ep(c2);
+  const float inc = (u < frac) ? 1.0f : 0.0f;
+  float nw = (n > 0.0f) ? c2 + inc : s;
+  nw = fminf(fmaxf(nw, 0.0f), (float)c.max_state);
+  return (uint32_t)nw;
 }
 
 // Add n >= 0 events to a cell in one step (counters.py `nfold`).
@@ -112,14 +168,9 @@ __device__ __forceinline__ uint32_t cml_nfold(uint32_t state, float n,
     uint32_t add_u = (uint32_t)add_f + bump;
     return state + (add_u < room ? add_u : room);
   }
-  float s = (float)state;
-  float v2 = cml_decode_f(s, c) + n;
-  float c2 = fmaxf(cml_encode_floor(v2, c), s);
-  float frac = (v2 - cml_decode_f(c2, c)) / expf(c2 * c.logb);
-  float inc = (u < frac) ? 1.0f : 0.0f;
-  float nw = (n > 0.0f) ? c2 + inc : s;
-  nw = fminf(fmaxf(nw, 0.0f), (float)c.max_state);
-  return (uint32_t)nw;
+  return cml_nfold_log(
+      state, n, u, c, [&](float x) { return cml_em(x, c); },
+      [&](float x) { return cml_ep(x, c); });
 }
 
 // threefry2x32, 20 rounds, of the counter (x1, x2) under the key (k1, k2),

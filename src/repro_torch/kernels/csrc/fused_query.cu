@@ -6,12 +6,13 @@
 //
 // Per key: d seeded fmix32 hashes, d gathers (one 32-bit word each; the
 // cell is shifted and masked out of it when cells are narrower than 32
-// bits), min over rows, Morris decode with expm1f.
+// bits), min over rows, Morris decode (XLA's expm1 times 1 / (b - 1):
+// common.cuh cml_decode).
 //
 // Bound on the H100: bytes.  Each key costs d random 4-byte reads from a
 // table far larger than L2 at full size (64 tenants x 4 MiB), plus a
 // coalesced 4-byte key read and 4-byte estimate write; the arithmetic is
-// a few dozen integer ops and one expm1f.  Design: one thread per
+// a few dozen integer ops and one expm1 polynomial.  Design: one thread per
 // (tenant, key), a 1-D block of 256 threads along the keys of one tenant
 // (grid.y = tenant), so key loads and estimate stores coalesce, and the
 // random table reads go through the read-only path (__ldg).  Nothing is
@@ -54,11 +55,11 @@ extern "C" int cml_fused_query(const void* tables, int t, int depth,
                                void* out, const uint32_t* seeds,
                                uint32_t width, int bits, int log_counter,
                                uint32_t max_state, float logb, float bm1,
-                               void* stream) {
+                               float rlogb, float rbm1, void* stream) {
   if (t <= 0 || n <= 0) return 0;
   if (depth < 1 || depth > CML_MAX_DEPTH) return (int)cudaErrorInvalidValue;
   const RowSeeds rs = cml_seeds(seeds, depth);
-  const Counter ctr{log_counter, max_state, logb, bm1};
+  const Counter ctr{log_counter, max_state, logb, bm1, rlogb, rbm1};
   const dim3 block(256);
   const dim3 grid((n + 255) / 256, t);
   cudaStream_t s = (cudaStream_t)stream;

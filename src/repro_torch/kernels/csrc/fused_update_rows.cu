@@ -121,14 +121,15 @@ extern "C" int cml_fused_update_rows(
     void* tables, int depth, int words_per_row, const int64_t* rows, int r,
     const void* keys, const void* mult, const void* unif, int n,
     const uint32_t* seeds, uint32_t width, int bits, int log_counter,
-    uint32_t max_state, float logb, float bm1, void* stream) {
+    uint32_t max_state, float logb, float bm1,
+    float rlogb, float rbm1, void* stream) {
   if (r <= 0 || n <= 0) return 0;
   if (depth < 1 || depth > CML_MAX_DEPTH) return (int)cudaErrorInvalidValue;
   if (!chain_words_fit(depth, words_per_row)) {
     return (int)cudaErrorInvalidValue;
   }
   const RowSeeds rs = cml_seeds(seeds, depth);
-  const Counter ctr{log_counter, max_state, logb, bm1};
+  const Counter ctr{log_counter, max_state, logb, bm1, rlogb, rbm1};
   auto* tb = (uint32_t*)tables;
   auto* ks = (const uint32_t*)keys;
   auto* mu = (const float*)mult;

@@ -227,12 +227,13 @@ extern "C" int cml_fused_update_score(
     const int64_t* urows, int r, const void* keys, const void* mult, int n,
     uint32_t k1, uint32_t k2, const void* cand, void* est, int m,
     const uint32_t* seeds, uint32_t width, int bits, int log_counter,
-    uint32_t max_state, float logb, float bm1, void* stream) {
+    uint32_t max_state, float logb, float bm1,
+    float rlogb, float rbm1, void* stream) {
   const Launch a{(uint32_t*)tables, depth, words_per_row, rows, urows, r,
                  (const uint32_t*)keys, (const float*)mult, n, k1, k2,
                  (const uint32_t*)cand, (float*)est, m,
                  cml_seeds(seeds, depth), width,
-                 Counter{log_counter, max_state, logb, bm1},
+                 Counter{log_counter, max_state, logb, bm1, rlogb, rbm1},
                  (cudaStream_t)stream};
   return launch(a, bits);
 }
@@ -243,11 +244,11 @@ extern "C" int cml_fused_update(
     const int64_t* urows, int t, const void* keys, const void* mult, int n,
     uint32_t k1, uint32_t k2, const uint32_t* seeds, uint32_t width,
     int bits, int log_counter, uint32_t max_state, float logb, float bm1,
-    void* stream) {
+    float rlogb, float rbm1, void* stream) {
   const Launch a{(uint32_t*)tables, depth, words_per_row, rows, urows, t,
                  (const uint32_t*)keys, (const float*)mult, n, k1, k2,
                  nullptr, nullptr, 0, cml_seeds(seeds, depth), width,
-                 Counter{log_counter, max_state, logb, bm1},
+                 Counter{log_counter, max_state, logb, bm1, rlogb, rbm1},
                  (cudaStream_t)stream};
   return launch(a, bits);
 }

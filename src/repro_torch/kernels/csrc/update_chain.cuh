@@ -25,16 +25,16 @@
 //      ORIGINAL position; a drawn one in a dense pass over the compacted
 //      slots) by a block-wide prefix sum of per-warp ballots,
 //      and their d table words asked of L2 (prefetch.global.L2).  The
-//      block also tabulates decode(s) and exp(s log b) of the first
-//      STATE_TAB states.  Dead slots (every duplicate of a sorted dedup
+//      block also tabulates expm1(s log b) and exp(-(s log b)) of the
+//      first STATE_TAB states (XLA's polynomials, xla_f32.cuh).  Dead slots (every duplicate of a sorted dedup
 //      batch, and the ring's stale padding) take no part in a chunk, and a
 //      chunk without a live slot is skipped.  A row of more live slots or
 //      chunks than its kernel's plan holds, or of depth > 2, skips this
 //      step, and each chunk's threads take their own slots as they come.
 //   2. Chunk by chunk, on the chunk's live slots: gather the d words
-//      (__ldcg), nfold (its decode / exp of a state in the tables read
+//      (__ldcg), nfold (its expm1 / exp of a state in the tables read
 //      from them: the same floats, a lookup for a chain of
-//      transcendentals), then merge the new states per 32-bit word in a
+//      transcendentals; one log1p a cell stays), then merge the new states per 32-bit word in a
 //      shared-memory table instead of a compare-and-swap on L2: one
 //      64-bit compare-and-swap claims a word and writes (word, value),
 //      the value being the word as read with the new state in its lane;
@@ -69,7 +69,7 @@ __host__ __device__ constexpr int table_slots() {
 
 // A chain's plan: a struct of constants that each kernel defines.
 //   kLive    live slots a compacted row holds, over at most kChunks chunks;
-//   kStates  log-counter states whose decode and exp are tabulated;
+//   kStates  log-counter states whose expm1 and exp are tabulated;
 //   kL2Only  compaction streams the row's mult and keys past L1 (__ldcg),
 //            leaving L1 to the gathers in flight.
 
@@ -132,45 +132,27 @@ struct UnifDraw {
 
 // The states outside the tables take the functions themselves, behind a
 // call the compiler does not evaluate ahead of the branch.
-__device__ __noinline__ float decode_slow(float s, Counter c) {
-  return cml_decode_f(s, c);
+__device__ __noinline__ float em_slow(float s, Counter c) {
+  return cml_em(s, c);
 }
 
-__device__ __noinline__ float exp_slow(float s, Counter c) {
-  return expf(s * c.logb);
+__device__ __noinline__ float ep_slow(float s, Counter c) {
+  return cml_ep(s, c);
 }
 
-// cml_nfold, with decode(s) and exp(s * log b) of states below `ts` read
-// from tables the block filled with the same functions (so the same
-// floats): a log counter's chain of transcendentals becomes lookups.
+// cml_nfold, with expm1(s log b) and exp(-(s log b)) of states below `ts`
+// read from tables the block filled with the same functions (so the same
+// floats): a log counter's transcendentals but one log1p become lookups.
 __device__ __forceinline__ uint32_t nfold_tab(uint32_t state, float n,
                                               float u, const Counter& c,
-                                              const float* dtab,
-                                              const float* etab, int ts) {
+                                              const float* emtab,
+                                              const float* eptab, int ts) {
   if (!c.log) return cml_nfold(state, n, u, c);
-  const float s = (float)state;
-  const float ds = state < (uint32_t)ts ? dtab[state] : decode_slow(s, c);
-  const float v2 = ds + n;
-  // cml_encode_floor(v2)
-  const float cs = floorf(log1pf(v2 * c.bm1) / c.logb);
-  const float slack = 1e-6f * fmaxf(v2, 1.0f);
-  const float limit = v2 + slack;
-  const float dcs = cs < (float)ts ? dtab[(int)cs] : decode_slow(cs, c);
-  const float too_high = (dcs > limit) ? 1.0f : 0.0f;
-  const float c2 = fmaxf(fmaxf(cs - too_high, 0.0f), s);
-  float dc2, ec2;
-  if (c2 < (float)ts) {
-    dc2 = dtab[(int)c2];
-    ec2 = etab[(int)c2];
-  } else {
-    dc2 = decode_slow(c2, c);
-    ec2 = exp_slow(c2, c);
-  }
-  const float frac = (v2 - dc2) / ec2;
-  const float inc = (u < frac) ? 1.0f : 0.0f;
-  float nw = (n > 0.0f) ? c2 + inc : s;
-  nw = fminf(fmaxf(nw, 0.0f), (float)c.max_state);
-  return (uint32_t)nw;
+  const float fts = (float)ts;
+  return cml_nfold_log(
+      state, n, u, c,
+      [&](float x) { return x < fts ? emtab[(int)x] : em_slow(x, c); },
+      [&](float x) { return x < fts ? eptab[(int)x] : ep_slow(x, c); });
 }
 
 template <int BITS>
@@ -403,8 +385,8 @@ __device__ __forceinline__ void update_chain(
   constexpr int MAX_CHUNKS = Plan::kChunks;
   constexpr int STATE_TAB = Plan::kStates;
   unsigned long long* table = smem;  // (word << 32 | value), FREE
-  float* dtab = (float*)(smem + SLOTS);  // decode(s), s < STATE_TAB
-  float* etab = dtab + STATE_TAB;        // exp(s * log b)
+  float* dtab = (float*)(smem + SLOTS);  // expm1(s log b), s < STATE_TAB
+  float* etab = dtab + STATE_TAB;        // exp(-(s log b))
   uint32_t* ccol = (uint32_t*)(etab + STATE_TAB);  // compacted live slots
   float* cmu = (float*)(ccol + 2 * LIVE);
   float* cu = cmu + LIVE;
@@ -421,8 +403,8 @@ __device__ __forceinline__ void update_chain(
   for (uint32_t s = tid; s < SLOTS; s += CHUNK) table[s] = FREE;
   const int ts = ctr.log ? min((int)ctr.max_state + 1, STATE_TAB) : 0;
   for (int s = tid; s < ts; s += CHUNK) {
-    dtab[s] = cml_decode_f((float)s, ctr);
-    etab[s] = expf((float)s * ctr.logb);
+    dtab[s] = cml_em((float)s, ctr);
+    etab[s] = cml_ep((float)s, ctr);
   }
   const int nch = (n + CHUNK - 1) / CHUNK;
   bool compacted = false;

@@ -16,12 +16,15 @@
 //
 // Semantics kept from the reference (sketch.py:144-153, kernels/ref.py
 // window_query_stacked_ref): for b = 0..B-1 in ASCENDING bucket order (not
-// from the cursor), est_b = decode(min over the d rows) * weights[r, b];
+// from the cursor), est_b = decode(min over the d rows) * weights[r, b],
+// which the reference's jitted graph reassociates for a log cell into
+// expm1(s log b) * (weights[r, b] * 1 / (b - 1)) (cml_decode_scaled);
 // mode "sum" starts from est_0 and adds est_1, est_2, ... in that order;
 // mode "max" keeps the largest.  Built with -fmad=false (see common.cuh),
-// the multiply and the add round separately, as the plain version's
-// separate torch ops do, so kernel and plain version are bit-equal.  All
-// offsets are 64-bit: the leaf row stride is B * d * words_per_row.
+// the multiplies and the add round separately, as the plain version's
+// separate torch ops and the reference's kernel do, so kernel, plain
+// version and reference are bit-equal.  All offsets are 64-bit: the leaf
+// row stride is B * d * words_per_row.
 //
 // The first two (window_query_kernel) read probes, mostly distinct: each
 // costs B * d random 32-byte reads from a leaf far larger than L2 (32
@@ -50,11 +53,11 @@
 //     d <= CML_MAX_DEPTH.
 //
 // A bucket whose weight is 0 is not read.  Its product is the same bits
-// without the read: decode(s) is finite and >= 0 for every state a cell
-// can hold (its largest, CMLS16's 65,535, decodes to about 5.2e10), so
-// decode(s) * w for w = +0 or -0 is a zero of w's sign, which is exactly
-// 0.0f * w; the reduction then runs on the same operands in the same
-// order.  That covers `query(n_buckets=k)` (the older buckets), expired
+// without the read: expm1(s log b) (or a linear state) is finite and >= 0
+// for every state a cell can hold (CMLS16's largest, 65,535, decodes to
+// about 5.2e10), and w / (b - 1) keeps w's sign, so the product for
+// w = +0 or -0 is a zero of w's sign, which is exactly 0.0f * w; the
+// reduction then runs on the same operands in the same order.  That covers `query(n_buckets=k)` (the older buckets), expired
 // buckets and an all-expired ring.
 //
 // The third (window_query_rows_kernel) reads the tracker refresh's
@@ -117,7 +120,8 @@ __device__ __forceinline__ float ring_estimate(
             cml_cell<BITS>(__ldg(ring + b * bucket_words + at[k]), col[k]);
         cmin = v < cmin ? v : cmin;
       }
-      const float est = cml_decode(cmin, ctr) * __ldg(wts + b);
+      const float est =
+          cml_decode_scaled(cmin, cml_weight_scale(__ldg(wts + b), ctr), ctr);
       if (b == 0) {
         acc = est;
       } else if (mode_max) {
@@ -145,7 +149,8 @@ __device__ __forceinline__ float ring_estimate(
           cmin = v < cmin ? v : cmin;
         }
       }
-      const float est = cml_decode(cmin, ctr) * __ldg(wts + b);
+      const float est =
+          cml_decode_scaled(cmin, cml_weight_scale(__ldg(wts + b), ctr), ctr);
       if (b == 0) {
         acc = est;
       } else if (mode_max) {
@@ -231,7 +236,7 @@ window_query_kernel(const uint32_t* __restrict__ tables, int r, int buckets,
             cmin = v < cmin ? v : cmin;
           }
         }
-        est[x] = cml_decode(cmin, ctr) * w;
+        est[x] = cml_decode_scaled(cmin, cml_weight_scale(w, ctr), ctr);
       }
     }
     // the round's estimates, in ascending bucket order, on every lane
@@ -406,13 +411,13 @@ int launch_window_query(const void* tables, int r, int buckets, int depth,
                         void* out, int mode_max, const uint32_t* seeds,
                         uint32_t width, int bits, int log_counter,
                         uint32_t max_state, float logb, float bm1,
-                        void* stream) {
+                        float rlogb, float rbm1, void* stream) {
   if (r <= 0 || n <= 0) return 0;
   if (depth < 1 || depth > CML_MAX_DEPTH || buckets < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const RowSeeds rs = cml_seeds(seeds, depth);
-  const Counter ctr{log_counter, max_state, logb, bm1};
+  const Counter ctr{log_counter, max_state, logb, bm1, rlogb, rbm1};
   auto* tb = (const uint32_t*)tables;
   auto* ks = (const uint32_t*)keys;
   auto* wt = (const float*)weights;
@@ -448,11 +453,11 @@ int launch_window_query(const void* tables, int r, int buckets, int depth,
                       void* out, int mode_max, const uint32_t* seeds,        \
                       uint32_t width, int bits, int log_counter,             \
                       uint32_t max_state, float logb, float bm1,             \
-                      void* stream) {                                        \
+                      float rlogb, float rbm1, void* stream) {               \
     return launch_window_query(tables, r, buckets, depth, words_per_row,     \
                                keys, key_stride, n, weights, out, mode_max,  \
                                seeds, width, bits, log_counter, max_state,   \
-                               logb, bm1, stream);                           \
+                               logb, bm1, rlogb, rbm1, stream);              \
   }
 
 CML_WINDOW_ENTRY(cml_window_query)
@@ -465,13 +470,13 @@ extern "C" int cml_window_query_stacked_rows(
     const int64_t* rows, const void* keys, int n, const void* weights,
     void* out, int mode_max, const uint32_t* seeds, uint32_t width, int bits,
     int log_counter, uint32_t max_state, float logb, float bm1,
-    void* stream) {
+    float rlogb, float rbm1, void* stream) {
   if (r <= 0 || n <= 0) return 0;
   if (depth < 1 || depth > CML_MAX_DEPTH || buckets < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const RowSeeds rs = cml_seeds(seeds, depth);
-  const Counter ctr{log_counter, max_state, logb, bm1};
+  const Counter ctr{log_counter, max_state, logb, bm1, rlogb, rbm1};
   auto* tb = (const uint32_t*)tables;
   auto* ks = (const uint32_t*)keys;
   auto* wt = (const float*)weights;

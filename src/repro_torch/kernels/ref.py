@@ -168,7 +168,8 @@ def window_query_stacked_rows_plain(tables: torch.Tensor, keys: torch.Tensor,
 
     tables (T, B, d, sw) window leaf; rows (R,) the rings to read; keys
     (R, N); weights (R, B).  Per key, bucket b's estimate is
-    decode(min over rows) * weights[r, b]; "sum" starts from bucket 0's
+    decode(min over rows) * weights[r, b] (`CounterSpec.decode_scaled`,
+    the reference kernel's reassociated product); "sum" starts from bucket 0's
     and adds the others in ascending bucket order, "max" keeps the
     largest.  Returns float32 (R, N).
     """
@@ -179,7 +180,8 @@ def window_query_stacked_rows_plain(tables: torch.Tensor, keys: torch.Tensor,
     out = None
     for b in range(tables.shape[1]):
         vals = read_cells(tables[:, b], rows, cols, counter.bits, cpl)
-        est = counter.decode(vals.min(dim=0).values) * weights[:, b:b + 1]
+        est = counter.decode_scaled(vals.min(dim=0).values,
+                                    weights[:, b:b + 1])
         if out is None:
             out = est
         elif mode == "sum":

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core import xla_f32
 from repro_torch.core.counters import CounterSpec
 from repro_torch.kernels import build, ref
 
@@ -136,9 +137,12 @@ def _check_geometry(tables, width, counter, cpl, dims) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _counter_args(counter: CounterSpec):
-    return (counter.bits, int(counter.kind == "log"), counter.max_state,
-            counter.logb if counter.kind == "log" else 0.0,
-            counter.bm1 if counter.kind == "log" else 0.0)
+    """bits, log, max_state, logb, bm1 and the float32 reciprocals 1 / logb
+    and 1 / bm1 that the reference's jitted graph multiplies by."""
+    if counter.kind != "log":
+        return (counter.bits, 0, counter.max_state, 0.0, 0.0, 0.0, 0.0)
+    return (counter.bits, 1, counter.max_state, counter.logb, counter.bm1,
+            xla_f32.recip(counter.logb), counter.rbm1)
 
 
 def _keys_ok(name: str, keys: torch.Tensor, shape=None) -> None:

@@ -169,9 +169,9 @@ def main(argv=None, params=None, record=None):
     def batches():
         for step, b in prefetch:
             if held["sketch"] is not None:
-                held["sketch"] = sk.update_batched(
+                held["sketch"] = sk.update_batched(  # jitted there
                     held["sketch"], sketch_keys(b["tokens"], dev),
-                    np.array([0, step], np.uint32))
+                    np.array([0, step], np.uint32), eager=False)
             b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
             if mesh is not None:
                 b = {k: sharding.distribute(v, mesh, sharding.sharding_for(

@@ -145,21 +145,38 @@ def embedding_bag(table, ids, mode: str = "mean", weights=None):
 
 
 def _sharded_bag(table, ids, mode: str, weights):
-    """An unweighted "sum" / "mean" `embedding_bag` of a DTensor table:
-    each rank sums its own rows with the in-shard mask as per-sample
-    weights (times 1 / bag for "mean"), a partial sum over the mesh dims
-    sharding the rows."""
-    if mode == "max" or weights is not None:
-        raise NotImplementedError("a sharded table takes unweighted sum "
-                                  "and mean bags only")
+    """`embedding_bag` of a DTensor table: each rank reduces the rows it
+    holds.  "sum" / "mean" are one `F.embedding_bag` with the in-shard
+    mask (times the weights; for "mean" over the bag length or the
+    weights' sum) as per-sample weights, a partial sum over the mesh dims
+    sharding the rows.  "max" takes -inf for rows held elsewhere, a
+    partial max.  The weights follow the ids' placement."""
     t_loc, i_loc, mine, out_pl, mesh, ids = _row_shard(table, ids)
     bag = ids.shape[-1]
+    # the bag dim is reduced: a column shard lands on the output's last dim
+    out_pl = [Shard(ids.ndim - 1) if p.is_shard(ids.ndim) else p
+              for p in out_pl]
     w = mine.to(t_loc.dtype)
-    if mode == "mean":
-        w = w / bag
-    out = F.embedding_bag(i_loc.reshape(-1, bag), t_loc, mode="sum",
-                          per_sample_weights=w.reshape(-1, bag))
-    out = out.reshape(*w.shape[:-1], t_loc.shape[-1])
+    if weights is not None:
+        weights = replicated(weights, mesh).redistribute(mesh,
+                                                         ids.placements)
+        w = w * weights.to_local().to(t_loc.dtype)
+    flat = i_loc.reshape(-1, bag)
+    if mode == "max":
+        vecs = F.embedding(flat, t_loc)
+        if weights is not None:
+            vecs = vecs * weights.to_local().reshape(-1, bag, 1).to(
+                t_loc.dtype)
+        vecs = vecs.masked_fill(~mine.reshape(-1, bag, 1), float("-inf"))
+        out = vecs.amax(dim=-2)
+        out_pl = [Partial("max") if p.is_partial() else p for p in out_pl]
+    else:
+        if mode == "mean":
+            w = w / (bag if weights is None else torch.clamp(
+                weights.to_local().sum(dim=-1, keepdim=True), min=1e-6))
+        out = F.embedding_bag(flat, t_loc, mode="sum",
+                              per_sample_weights=w.reshape(-1, bag))
+    out = out.reshape(*mine.shape[:-1], t_loc.shape[-1])
     return from_local(out, mesh, out_pl,
                       tuple(ids.shape[:-1]) + (table.shape[1],))
 

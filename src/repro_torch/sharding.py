@@ -403,10 +403,11 @@ def update_slice(buf, upd, start, dim: int):
 
     A DTensor `buf` is written shard by shard.  `upd` is brought to
     `buf`'s placements, whole along `dim`; each rank then copies into its
-    own chunk of `dim` the updated slots that fall in it, and sends every
-    other row of `upd` to slot (offset mod chunk length), rewritten with
-    its own value.  Those slots are distinct while `upd` is no longer
-    than the chunk."""
+    own chunk of `dim` the updated slots that fall in it.  An update no
+    longer than the chunk sends every other row of `upd` to slot (offset
+    mod chunk length), rewritten with its own value (those slots are
+    distinct); a longer one gathers, for each slot of the chunk, the row
+    of `upd` that lands there, or keeps the slot."""
     size, n = upd.shape[dim], buf.shape[dim]
     st = torch.clamp(start.to(torch.int64), 0, n - size)
     if not is_dtensor(buf):
@@ -420,15 +421,18 @@ def update_slice(buf, upd, start, dim: int):
             for d, p in enumerate(buf.placements)]
     upd = replicated(upd, mesh).redistribute(mesh, want).to_local()
     local = buf.to_local()
-    if length:
-        if size > length:
-            raise ValueError(f"an update of {size} slots is longer than a "
-                             f"chunk of {length} of dimension {dim}")
+    shape = [-1 if i == dim else 1 for i in range(local.ndim)]
+    if length and size > length:
+        src = lo - st + torch.arange(length, dtype=torch.int64,
+                                     device=local.device)
+        hit = ((src >= 0) & (src < size)).reshape(shape)
+        rows = upd.to(local.dtype).index_select(dim, src.clamp(0, size - 1))
+        local = torch.where(hit, rows, local)
+    elif length:
         k = st + torch.arange(size, dtype=torch.int64,
                               device=local.device) - lo
         slot = torch.remainder(k, length)
-        mine = ((k >= 0) & (k < length)).reshape(
-            [-1 if i == dim else 1 for i in range(local.ndim)])
+        mine = ((k >= 0) & (k < length)).reshape(shape)
         local = local.index_copy(dim, slot, torch.where(
             mine, upd.to(local.dtype), local.index_select(dim, slot)))
     return from_local(local, mesh, buf.placements, buf.shape)

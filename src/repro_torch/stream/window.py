@@ -45,8 +45,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import sketch as sk
-from repro_torch.core import staging
-from repro_torch.core.counters import f32, f32_const, signed_view, zeros
+from repro_torch.core import staging, xla_f32
+from repro_torch.core.counters import f32_const, signed_view, zeros
 from repro_torch.core.device import resolve_device
 from repro_torch.core.sketch import Sketch, SketchSpec
 from repro_torch.kernels import ops
@@ -113,11 +113,12 @@ def _set_bucket(tables: torch.Tensor, b: int, table) -> torch.Tensor:
     return out
 
 
-def window_update(win: WindowedSketch, keys, rng, weights=None
-                  ) -> WindowedSketch:
-    """Conservative-update the active bucket (`sk.update_batched`)."""
+def window_update(win: WindowedSketch, keys, rng, weights=None,
+                  eager: bool = True) -> WindowedSketch:
+    """Conservative-update the active bucket (`sk.update_batched`, whose
+    `eager` picks the float graph of the reference's call)."""
     s = sk.update_batched(win.bucket(win.cursor), keys, rng,
-                          weights=weights)
+                          weights=weights, eager=eager)
     return dataclasses.replace(
         win, tables=_set_bucket(win.tables, win.cursor, s.table))
 
@@ -196,20 +197,20 @@ def window_weights_host(cursors, buckets: int,
                         gamma: float | None = None) -> np.ndarray:
     """(R, B) float32 per-bucket estimate weights for R rings of one
     geometry, on the host: 0 past the last `n_buckets` intervals, else 1,
-    or gamma^age with lazy decay (one evaluation for every ring)."""
+    or gamma^age with lazy decay (one evaluation for every ring).  The
+    reference's `jnp.float32(gamma) ** age`, bit for bit (`xla_f32.pow`:
+    XLA's CPU calls `powf`)."""
     k = buckets if n_buckets is None else n_buckets
     if not 1 <= k <= buckets:
         raise ValueError(f"window of {k} buckets outside ring of {buckets}")
     cursors = np.asarray(cursors, np.int64).reshape(-1, 1)
-    ages = torch.from_numpy((cursors - np.arange(buckets)[None, :])
-                            % buckets)
-    live = (ages < k).to(torch.float32)
+    ages = (cursors - np.arange(buckets)[None, :]) % buckets
+    live = (ages < k).astype(np.float32)
     if gamma is not None:
         if not 0.0 < gamma <= 1.0:
             raise ValueError("gamma must be in (0, 1]")
-        live = live * torch.pow(torch.tensor(f32(gamma)),
-                                ages.to(torch.float32))
-    return live.numpy()
+        live = live * xla_f32.pow(gamma, ages)
+    return live
 
 
 def window_weights_stacked(cursors, buckets: int,
@@ -277,7 +278,7 @@ def decay(sketch: Sketch, gamma: float, rng) -> Sketch:
     _check_gamma(gamma)
     c = sketch.spec.counter
     states = sk.logical_table(sketch.table, sketch.spec)
-    v = c.decode_xla(states) * f32_const(gamma, states.device)
+    v = c.decode_eager(states) * f32_const(gamma, states.device)
     table = sk.storage_table(c.cells(c.reencode_stochastic(v, rng)),
                              sketch.spec)
     return Sketch(table=table, spec=sketch.spec)
@@ -332,8 +333,8 @@ def decayed_rotate(ds: DecayedSketch, rng) -> DecayedSketch:
     nxt = (ds.cursor + 1) % b
     expiring = sk.logical_table(ds.tables[nxt], spec)
     tail = sk.logical_table(ds.tail, spec)
-    v = (c.decode_xla(expiring)
-         + f32_const(ds.gamma, tail.device) * c.decode_xla(tail))
+    v = (c.decode_eager(expiring)
+         + f32_const(ds.gamma, tail.device) * c.decode_eager(tail))
     folded = sk.storage_table(c.cells(c.reencode_stochastic(v, rng)), spec)
     tables = _set_bucket(ds.tables, b, folded)
     signed_view(tables)[nxt] = 0
@@ -359,25 +360,30 @@ def decayed_update(ds: DecayedSketch, keys, rng, weights=None,
 def _integer_pow(x: np.float32, n: int) -> np.float32:
     """x ** n for a Python int n >= 1 by binary exponentiation in float32
     multiplications -- the reference's `g ** b` (`lax.integer_pow`),
-    which can differ from a float pow by an ulp."""
+    which can differ from a float pow by an ulp -- each product flushed
+    to zero below the smallest normal, as XLA's CPU does."""
+    def mul(a, b):
+        p = np.float32(a * b)
+        return p if abs(p) >= np.float32(1.1754944e-38) else np.float32(0)
+
     acc = None
     while n > 0:
         if n & 1:
-            acc = x if acc is None else np.float32(acc * x)
+            acc = x if acc is None else mul(acc, x)
         n >>= 1
         if n > 0:
-            x = np.float32(x * x)
+            x = mul(x, x)
     return np.float32(1.0) if acc is None else acc
 
 
 def decayed_weights_host(cursor: int, buckets: int, gamma: float
                          ) -> np.ndarray:
     """(B+1,) float32 query weights of a decayed leaf: gamma^age of each
-    ring bucket (a float32 pow), then gamma^B for the tail (binary
-    exponentiation, as the reference computes it)."""
+    ring bucket (`xla_f32.pow`, the reference's float32 `**`), then
+    gamma^B for the tail (binary exponentiation, as the reference computes
+    it)."""
     g = np.float32(gamma)
-    ages = torch.from_numpy((int(cursor) - np.arange(buckets)) % buckets)
-    ring = torch.pow(torch.tensor(g), ages.to(torch.float32)).numpy()
+    ring = xla_f32.pow(g, (int(cursor) - np.arange(buckets)) % buckets)
     return np.concatenate([ring, [_integer_pow(g, buckets)]]).astype(
         np.float32)
 

@@ -11,11 +11,11 @@ Both packages get the same seeded numpy inputs:
     one flush epoch to the next, expiry out of the window, `n_buckets`,
     `gamma`, and the reference's ValueError / TypeError cases.
 
-Tolerances: rows, tables and CMS32 decisions are exact.  A log counter's
-estimate passes through float32 expm1, where JAX and torch differ on the
-CPU by up to 8 ulp, so an estimate within 8 ulp of the threshold could
-decide differently: the log-counter cases assert that no estimate lies
-that close to their threshold, and then hold the masks exact too.
+Tolerance: none.  Rows, tables, estimates and decisions are exact in
+every format, an estimate at the threshold included: the port computes
+the reference's float32 graphs (`core/xla_f32.py`), the eager decode
+where the reference's `admit` queries op by op and the jitted one on its
+kernel engine.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -49,13 +49,6 @@ def _specs(name, width=4096, depth=3, packed=False):
 def _zipf(n, vocab, seed=0):
     return (np.random.default_rng(seed).zipf(1.3, n) % vocab).astype(
         np.uint32)
-
-
-def _clear_of_threshold(est, threshold):
-    """No estimate within 8 ulp of the threshold (see the docstring)."""
-    est = np.asarray(est, np.float32)
-    gap = 8 * np.spacing(np.float32(threshold))
-    assert not np.any(np.abs(est - np.float32(threshold)) <= gap)
 
 
 def _equal(rows_mask_a, rows_mask_b):
@@ -102,8 +95,6 @@ def test_admit_against_a_sketch_matches_jax(name):
                            np.asarray([0, 9], np.uint32))
     b = tsk.Sketch(table=tc.from_numpy(np.asarray(a.table), "cpu"), spec=ts)
     ids = np.arange(600, dtype=np.uint32)
-    if name != "CMS32":
-        _clear_of_threshold(jsk.query(a, jnp.asarray(ids)), JASPEC.threshold)
     _equal(jadm.admit(a, jnp.asarray(ids), JASPEC),
            tadm.admit(b, ids, TASPEC))
 
@@ -147,9 +138,6 @@ def test_observe_and_admit_engines_match_jax(name):
                                                key, JASPEC, engine=engine)
         want[engine] = (np.asarray(s.table), np.asarray(rows),
                         np.asarray(mask))
-        if name != "CMS32":
-            _clear_of_threshold(jsk.query(s, jnp.asarray(ids)),
-                                JASPEC.threshold)
     for engine in ("xla", "kernel"):
         for x, y in zip(want["xla"], want[engine]):
             np.testing.assert_array_equal(x, y)
@@ -248,9 +236,6 @@ def test_service_admit_promotes_per_epoch_like_jax(name):
         b.enqueue("emb", batch)
         want = a.admit("emb", ids)
         got = b.admit("emb", ids)
-        if name != "CMS32":
-            _clear_of_threshold(a.planes[0].tracker.estimates,
-                                JASPEC.threshold)
         _equal(want, got)
     assert bool(got[1][0]) and int(got[0][0]) >= TASPEC.n_fallback
     # the admitted rows follow the policy's row map from the tracker row

@@ -17,10 +17,9 @@ events still pending in the rings when the snapshot is taken.  Then:
     ties included), atomic publish, `keep_last`, a missing leaf, a shape
     mismatch, and a tiered manifest (not ported: NotImplementedError).
 
-Tolerances: CMS32 is exact everywhere.  Log cells go through float32
-expm1/log1p, whose JAX and torch CPU versions differ by a few ulp: the
-log-format services below land the same cells (measured), and their
-tracker estimates and answers agree within 8 ulp.
+Tolerance: none.  Every leaf, tracker estimate and answer equals the
+reference's bit for bit in every format (the reference's float32 graphs,
+`core/xla_f32.py`).
 """
 import json
 import os
@@ -104,32 +103,30 @@ def _drive(services, seed, epochs=2, ts=0.0):
     return ts
 
 
-def _log(svc) -> bool:
-    return svc.spec.counter.kind == "log"
-
-
 def _numpy_tree(svc):
     if isinstance(svc, TService):
         return convert.service_to_numpy(svc)[1]
     return jax.tree_util.tree_map(np.asarray, svc._tree())
 
 
-def _assert_leaves(x: dict, y: dict, log: bool) -> None:
+def _bits(a):
+    """float32 arrays as their bits (so -0.0 and NaNs compare exactly)."""
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _assert_leaves(x: dict, y: dict) -> None:
     """Flat {path: array} trees equal: names, order, shapes, dtypes and
-    bytes (log tracker estimates within 8 ulp)."""
+    bytes."""
     assert list(x) == list(y)
     for k in x:
         a, b = np.asarray(x[k]), np.asarray(y[k])
         assert a.dtype == b.dtype and a.shape == b.shape, k
-        if log and k.endswith("topk/estimates"):
-            np.testing.assert_array_max_ulp(a, b, maxulp=8)
-        else:
-            np.testing.assert_array_equal(a, b, err_msg=k)
+        np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=k)
 
 
 def _assert_same_state(a, b) -> None:
-    _assert_leaves(tck.flatten(_numpy_tree(a)), tck.flatten(_numpy_tree(b)),
-                   _log(b))
+    _assert_leaves(tck.flatten(_numpy_tree(a)), tck.flatten(_numpy_tree(b)))
     ma, mb = a._meta(), b._meta()
     for key in ("tenant_order", "track_top", "admission", "planes",
                 "windows", "stats", "seed", "queue_capacity"):
@@ -154,23 +151,17 @@ def _answer(svc):
     return out
 
 
-def _assert_answers(x: dict, y: dict, log: bool) -> None:
+def _assert_answers(x: dict, y: dict) -> None:
     assert list(x) == list(y)
     for n in x["query_all"]:
         a, b = x["query_all"][n], y["query_all"][n]
-        if log and n != "m":
-            np.testing.assert_array_max_ulp(a, b, maxulp=8)
-        else:
-            np.testing.assert_array_equal(a, b, err_msg=n)
+        np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=n)
     for k in x:
         if k == "query_all":
             continue
         (ka, va), (kb, vb) = x[k], y[k]
         np.testing.assert_array_equal(ka, kb, err_msg=k)
-        if log and k.startswith("topk") and k != "topk/m":
-            np.testing.assert_array_max_ulp(va, vb, maxulp=8)
-        else:
-            np.testing.assert_array_equal(va, vb, err_msg=k)
+        np.testing.assert_array_equal(_bits(va), _bits(vb), err_msg=k)
 
 
 def _files(root):
@@ -203,7 +194,7 @@ def test_snapshot_files_match_jax(tmp_path, name, packed):
     assert list(ma["leaves"]) == list(la) == list(lb)
     assert "windows/0/topk/keys" in la and "planes/1/fill" in la
     assert la["planes/0/fill"].dtype == np.int32
-    _assert_leaves(la, lb, log=name != "CMS32")
+    _assert_leaves(la, lb)
     assert (ma["step"], ma["hosts"]) == (mb["step"], mb["hosts"])
     for key in ma["metadata"]:
         if key != "metrics":
@@ -230,7 +221,7 @@ def test_jax_snapshot_restores_into_the_port(tmp_path, name):
     assert c.stats == a.stats
     assert c.planes[0].pending() == b.planes[0].pending() > 0
     _assert_same_state(a, c)
-    _assert_answers(_answer(a), _answer(c), _log(c))
+    _assert_answers(_answer(a), _answer(c))
     _drive([a, c], seed=4, ts=ts)
     a.flush()
     c.flush()
@@ -245,7 +236,7 @@ def test_port_snapshot_restores_into_jax(tmp_path, name):
     c = JService.restore(str(tmp_path))
     assert c.admission_of("w0") == jadm.AdmissionSpec(6.0, 64, 4096)
     _assert_same_state(c, b)
-    _assert_answers(_answer(c), _answer(b), _log(b))
+    _assert_answers(_answer(c), _answer(b))
     _drive([c, b], seed=6, ts=ts)
     c.flush()
     b.flush()
@@ -257,17 +248,15 @@ def test_port_round_trip_restores_every_leaf(tmp_path):
     ts = _drive([b], seed=7)
     b.snapshot(str(tmp_path), step=4)
     c = TService.restore(str(tmp_path), device="cpu")
-    _assert_leaves(tck.flatten(_numpy_tree(b)), tck.flatten(_numpy_tree(c)),
-                   log=False)
+    _assert_leaves(tck.flatten(_numpy_tree(b)), tck.flatten(_numpy_tree(c)))
     assert c.metrics.snapshot() == b.metrics.snapshot()
     assert [p.rng.draws for p in c.planes] == [p.rng.draws for p in b.planes]
     assert [p.epochs for p in c.planes[2:]] == [p.epochs for p in b.planes[2:]]
     _drive([b, c], seed=8, ts=ts)
     b.flush()
     c.flush()
-    _assert_leaves(tck.flatten(_numpy_tree(b)), tck.flatten(_numpy_tree(c)),
-                   log=False)
-    _assert_answers(_answer(b), _answer(c), log=False)
+    _assert_leaves(tck.flatten(_numpy_tree(b)), tck.flatten(_numpy_tree(c)))
+    _assert_answers(_answer(b), _answer(c))
 
 
 # --------------------------------------------------------------------------
@@ -315,7 +304,7 @@ def test_downgraded_manifest_restores_like_jax(tmp_path, version):
     assert c.metrics.snapshot() == a.metrics.snapshot()
     assert c.stats == a.stats == b.stats
     _assert_same_state(a, c)
-    _assert_answers(_answer(a), _answer(c), log=False)
+    _assert_answers(_answer(a), _answer(c))
     assert (c.admission_of("emb") is None) == (version < 4)
 
 
@@ -406,7 +395,7 @@ def test_restore_rearms_trackers_like_jax(tmp_path, k):
         keys, est = c.topk(n, min(k, 8))
         np.testing.assert_array_equal(keys, top[n][0][:k])
         np.testing.assert_array_equal(est, top[n][1][:k])
-    _assert_answers(_answer(ja), _answer(c), log=False)
+    _assert_answers(_answer(ja), _answer(c))
 
 
 @pytest.mark.parametrize("k", [1, 2, 5, 7, 9])

@@ -7,11 +7,10 @@ interpret mode at 1-2 tenants x 2 chunks, and with the reference's XLA
 engines (`repro/kernels/ref.py`, which the JAX package's own tests hold
 bit-identical to its kernels) at larger sizes.
 
-Tolerances: the linear counter (CMS32) and the rings match exactly.  For
-log counters the raw cell states read by a query match exactly; decoded
-estimates are within 8 ulp (JAX's and torch's float32 expm1 differ), and
-an update may land a few cells one state apart, because `nfold`'s
-stochastic rounding threshold moves by an ulp (see test_torch_counters).
+Tolerance: none.  Tables, rings and estimates match bit for bit in every
+format: the plain versions compute the reference's jitted float32 graph
+(`core/xla_f32.py`), which both its interpret-mode kernels and its XLA
+engines compile to.
 """
 import jax
 import jax.numpy as jnp
@@ -57,31 +56,20 @@ def _t(a):
     return tc.from_numpy(np.asarray(a), "cpu")
 
 
-def _check_states(name, got, want, max_frac=0.0):
-    """Storage tables equal (CMS32) or, for log cells, differing in at
-    most `max_frac` of cells and only by one state."""
-    jcnt, _ = _counters(name)
+def _check_states(name, got, want):
+    """Storage tables equal, cell for cell."""
     got = np.asarray(got)
     want = np.asarray(want)
     assert got.dtype == want.dtype and got.shape == want.shape
-    if jcnt.kind == "linear" or max_frac == 0.0:
-        assert np.array_equal(got, want)
-        return
-    bits = jcnt.bits
-    if got.dtype == np.uint32 and bits < 32:
-        got = np.asarray(jc.unpack_table(jnp.asarray(got), bits))
-        want = np.asarray(jc.unpack_table(jnp.asarray(want), bits))
-    diff = got.astype(np.int64) - want.astype(np.int64)
-    assert (diff != 0).mean() <= max_frac, f"{int((diff != 0).sum())} cells"
-    assert np.abs(diff).max() <= 1
+    assert np.array_equal(got, want), f"{int((got != want).sum())} words"
 
 
 def _check_est(name, got, want):
-    jcnt, _ = _counters(name)
-    if jcnt.kind == "linear":
-        assert np.array_equal(got, want)
-    else:
-        np.testing.assert_array_max_ulp(got, np.asarray(want), maxulp=8)
+    """float32 estimates equal, bit for bit."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32)), (
+        f"{int((got.view(np.int32) != want.view(np.int32)).sum())} apart")
 
 
 # --------------------------------------------------------------------------
@@ -122,18 +110,26 @@ def test_query_ref_and_ops_vs_xla(name, packed):
     keys = np.random.default_rng(4).integers(0, 5000, (5, 300)).astype(
         np.uint32)
     seeds = jh.make_row_seeds(0x5EED, 2)
+    # the reference's XLA engine (`ops.tier_query`) runs it under jit
+    query_ref = jax.jit(jref.query_ref, static_argnames=("counter", "cpl"))
     for t in range(5):
-        want = np.asarray(jref.query_ref(jnp.asarray(tables[t]),
-                                         jnp.asarray(keys[t]), seeds, jcnt,
-                                         cpl=cpl))
+        want = np.asarray(query_ref(jnp.asarray(tables[t]),
+                                    jnp.asarray(keys[t]), seeds, jcnt,
+                                    cpl=cpl))
         got = tref.query_ref(_t(tables[t]), _t(keys[t]),
                              th.make_row_seeds(0x5EED, 2), tcnt, cpl=cpl)
         _check_est(name, got.numpy(), want)
+    # query_many is the kernel family (jitted there), query_stacked the
+    # vmapped `sk.query` (op by op there): each equals its own
+    jspec = jsk.SketchSpec(width=width, counter=jcnt, packed=packed)
     tspec = tsk.SketchSpec(width=width, counter=tcnt, packed=packed)
     many = tops.query_many(_t(tables), tspec, keys[0]).numpy()
-    stacked = tsk.query_stacked(_t(tables), tspec,
-                                _t(np.broadcast_to(keys[0], (5, 300))))
-    assert np.array_equal(many, stacked.numpy())
+    _check_est(name, many, jops.query_many(jnp.asarray(tables), jspec,
+                                           jnp.asarray(keys[0])))
+    probes = np.ascontiguousarray(np.broadcast_to(keys[0], (5, 300)))
+    stacked = tsk.query_stacked(_t(tables), tspec, _t(probes))
+    _check_est(name, stacked.numpy(), jsk.query_stacked(
+        jnp.asarray(tables), jspec, jnp.asarray(probes)))
 
 
 # --------------------------------------------------------------------------
@@ -180,14 +176,9 @@ def test_fused_update_score_plain_vs_pallas(name, packed):
         tt, _t(keys), _t(mult), key, _t(cand), rows, seeds=SEEDS,
         width=width, counter=tcnt, cpl=cpl)
     assert out is tt  # in place
-    _check_states(name, tc.to_numpy(out), jt, max_frac=0.02)
+    _check_states(name, tc.to_numpy(out), jt)
     assert np.array_equal(tc.to_numpy(out)[1], tables[1])  # unlisted row
-    if jcnt.kind == "linear":
-        assert np.array_equal(test.numpy(), np.asarray(jest))
-    else:
-        # estimates of cells that landed alike agree within 8 ulp
-        np.testing.assert_allclose(test.numpy(), np.asarray(jest),
-                                   rtol=2 * (jcnt.base - 1) + 1e-5)
+    _check_est(name, test.numpy(), jest)
 
 
 _xla_update_score = jax.jit(jref.update_score_rows_ref,
@@ -213,7 +204,7 @@ def test_update_score_rows_ref_vs_xla_engine(name, packed):
     out, test = tref.update_score_rows_ref(
         _t(tables), _t(keys), _t(mult), _t(unif), _t(rows), _t(cand),
         th.make_row_seeds(0x5EED, 2), tcnt, CHUNK, cpl=cpl)
-    _check_states(name, tc.to_numpy(out), jt, max_frac=0.01)
+    _check_states(name, tc.to_numpy(out), jt)
     if jcnt.kind == "linear":
         assert np.array_equal(test.numpy(), np.asarray(jest))
 

@@ -17,7 +17,13 @@ port and the JAX package's unmeshed training (CPU).
     onto the 2 x 2 mesh: bit for bit;
   * the training loop's own checkpoints (`--ckpt-every 1`): written once,
     by rank 0, with no error in any rank's writer thread, and resumed by
-    `launch.train --mesh` bit for bit.
+    `launch.train --mesh` bit for bit;
+  * `layers.embedding_bag` of a row-sharded table in modes "sum", "mean"
+    and "max", unweighted and weighted, and `sharding.update_slice` of
+    an update longer than a rank's chunk (a clamped start included),
+    against the reference's single-device `embedding_bag` and
+    `jax.lax.dynamic_update_slice` on the whole arrays: exact (the
+    inputs are small integers, the bag weights sum to 2).
 """
 import dataclasses
 import os
@@ -55,6 +61,38 @@ LOSS = 1e-5
 PARAMS = 1e-4
 
 
+# sharded lookups and slice writes: row placements of a (10, 6) table and
+# a (12, 3) buffer on the 2 x 2 mesh (rows over "data", over both dims,
+# rows and columns)
+BAG_PLACEMENTS = ["rows_data", "rows_both", "rows_cols"]
+SLICE_PLACEMENTS = ["rows_data", "rows_both"]
+SLICE_STARTS = [4, 0, 10]  # 10 clamps to 5, as dynamic_update_slice does
+
+
+def _placements():
+    from torch.distributed.tensor import Replicate, Shard
+    return {"rows_data": [Shard(0), Replicate()],
+            "rows_both": [Shard(0), Shard(0)],
+            "rows_cols": [Shard(0), Shard(1)]}
+
+
+PLACEMENTS = _placements()
+
+
+def _slice_inputs():
+    """Small-integer tables, and bag weights that sum to 2 in every bag,
+    so every sum and mean is exact in float32 in any order: (table, ids,
+    weights, buf, upd), upd 7 rows long, longer than any chunk of buf."""
+    rng = np.random.default_rng(5)
+    table = rng.integers(-8, 8, (10, 6)).astype(np.float32)
+    ids = rng.integers(0, 10, (5, 4)).astype(np.int64)
+    wts = np.stack([rng.permutation(np.array([1.0, 0.5, 0.25, 0.25]))
+                    for _ in range(5)]).astype(np.float32)
+    buf = rng.integers(-8, 8, (12, 3)).astype(np.float32)
+    upd = rng.integers(20, 30, (7, 3)).astype(np.float32)
+    return table, ids, wts, buf, upd
+
+
 def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
@@ -81,6 +119,23 @@ def run(rank: int, world: int, init_file: str, out_dir: str) -> None:
     res["constrain_pl"] = tuple(y.placements) == want
     res["constrain_local"] = y.to_local().numpy()
     res["constrain_full"] = y.full_tensor().numpy()
+
+    # the sharded embedding bag ("max", weighted) and an update longer
+    # than a chunk, on the mesh
+    from repro_torch.models import layers
+    table, ids, wts, buf, upd = (torch.from_numpy(x) for x in _slice_inputs())
+    for pl in BAG_PLACEMENTS:
+        placed = sharding.distribute(table, mesh, PLACEMENTS[pl])
+        for mode in ("sum", "mean", "max"):
+            for weighted in (False, True):
+                out = layers.embedding_bag(placed, ids, mode,
+                                           wts if weighted else None)
+                res[f"bag/{pl}/{mode}/{weighted}"] = out.full_tensor().numpy()
+    for pl in SLICE_PLACEMENTS:
+        placed = sharding.distribute(buf, mesh, PLACEMENTS[pl])
+        for start in SLICE_STARTS:
+            out = sharding.update_slice(placed, upd, torch.tensor(start), 0)
+            res[f"slice/{pl}/{start}"] = out.full_tensor().numpy()
 
     # three steps of launch.train on the mesh, the reference's init, the
     # loop checkpointing every step
@@ -271,3 +326,35 @@ def test_checkpoints_cross_meshes_bit_for_bit(ranks, case):
         assert set(saved) == set(ranks["unmeshed"])
         for k, v in saved.items():
             np.testing.assert_array_equal(ranks["unmeshed"][k], v)
+
+
+@pytest.mark.parametrize("placement", BAG_PLACEMENTS)
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_sharded_embedding_bag_matches_reference(ranks, mode, placement):
+    """`layers.embedding_bag` of a row-sharded DTensor table, unweighted
+    and weighted, equals the reference's single-device `embedding_bag` on
+    the whole table on every rank."""
+    from repro.models import layers as jlayers
+    table, ids, wts, _, _ = _slice_inputs()
+    for weighted in (False, True):
+        want = np.asarray(jlayers.embedding_bag(
+            jax.numpy.asarray(table), jax.numpy.asarray(ids), mode,
+            jax.numpy.asarray(wts) if weighted else None))
+        for res in ranks["ranks"]:
+            np.testing.assert_array_equal(
+                res[f"bag/{placement}/{mode}/{weighted}"], want)
+
+
+@pytest.mark.parametrize("placement", SLICE_PLACEMENTS)
+def test_sharded_update_slice_longer_than_a_chunk(ranks, placement):
+    """`sharding.update_slice` of a 7-row update into a (12, 3) buffer
+    sharded in chunks of 6 or 3 rows equals `jax.lax.dynamic_update_slice`
+    on the whole buffer, a clamped start included."""
+    _, _, _, buf, upd = _slice_inputs()
+    for start in SLICE_STARTS:
+        want = np.asarray(jax.lax.dynamic_update_slice(
+            jax.numpy.asarray(buf), jax.numpy.asarray(upd),
+            (jax.numpy.int32(start), jax.numpy.int32(0))))
+        for res in ranks["ranks"]:
+            np.testing.assert_array_equal(res[f"slice/{placement}/{start}"],
+                                          want)

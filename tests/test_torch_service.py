@@ -6,14 +6,9 @@ from a seed): `enqueue_many` (whole-plane and one-row appends),
 `topk`, `sketch_of`.  A flush lands rows grouped into several fill
 classes, because one tenant gets more traffic than the others.
 
-CMS32 (integer cells) must match exactly: tables, rings, fills, PRNG
-draws, trackers, estimates and the per-call dispatch audit.  Log-counter
-planes go through float32 expm1/log1p, which differ between JAX and
-torch by a few ulp (test_torch_counters), so a cell may land one state
-apart where a stochastic rounding threshold moved; the bound is at most
-0.1% of cells, each by one state, and trackers then agree on their keys'
-estimates within 8 ulp where the cells agree.  Measured on this stream:
-no cell differs.
+Every format must match exactly: tables, rings, fills, PRNG draws,
+trackers, estimates (bit for bit) and the per-call dispatch audit.  The
+port computes the reference's float32 graphs (`core/xla_f32.py`).
 """
 import jax
 import jax.numpy as jnp
@@ -104,32 +99,27 @@ def _cells(leaf, spec):
 
 
 def _compare(a, b, name, packed):
-    """Every leaf equal (rings, fills, draws exact; tables exact for
-    CMS32, bounded for log cells); returns #differing log cells."""
+    """Every leaf equal: rings, fills, draws, tables and trackers (their
+    estimates bit for bit); returns the count of differing cells."""
     js, _ = _specs(name, packed)
     la, lb = _leaves(a, b)
     assert [p["rng_draws"] for p in a._meta()["planes"]] == \
         [p.rng.draws for p in b.planes]
     assert a.stats == b.stats
     differing = 0
-    for i, (pa, pb) in enumerate(zip(la, lb)):
+    for pa, pb in zip(la, lb):
         for key in ("queue", "fill"):
             assert pa[key].dtype == pb[key].dtype
             assert np.array_equal(pa[key], pb[key]), key
         assert pa["tables"].dtype == pb["tables"].dtype
-        if i == 1 or name == "CMS32":  # plane 1 is the CMS32 metrics plane
-            assert np.array_equal(pa["tables"], pb["tables"])
-            for key in ("keys", "estimates", "filled"):
-                assert np.array_equal(pa["topk"][key], pb["topk"][key]), key
-            continue
         diff = _cells(pb["tables"], js) - _cells(pa["tables"], js)
-        differing = int((diff != 0).sum())
-        assert differing <= 1e-3 * diff.size
-        assert np.abs(diff).max(initial=0) <= 1
-        if differing == 0:
-            assert np.array_equal(pa["topk"]["filled"], pb["topk"]["filled"])
-            np.testing.assert_array_max_ulp(pb["topk"]["estimates"],
-                                            pa["topk"]["estimates"], maxulp=8)
+        differing += int((diff != 0).sum())
+        assert np.array_equal(pa["tables"], pb["tables"])
+        for key in ("keys", "estimates", "filled"):
+            x, y = np.asarray(pa["topk"][key]), np.asarray(pb["topk"][key])
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            assert np.array_equal(x, y), key
     return differing
 
 
@@ -140,23 +130,18 @@ def _reads(a, b, name, audit):
     one_a, one_b = audit(lambda: a.query("b", probes[1]),
                          lambda: b.query("b", probes[1]))
     top_a, top_b = audit(lambda: a.topk("a", 5), lambda: b.topk("a", 5))
-    exact = name == "CMS32"
     for n in a.tenants:
         x, y = np.asarray(qa[n]), qb[n].numpy()
-        if exact or n == "m":
-            assert np.array_equal(x, y), n
-        else:
-            np.testing.assert_array_max_ulp(y, x, maxulp=8)
+        assert np.array_equal(x.view(np.int32), y.view(np.int32)), n
     assert np.array_equal(one_b.numpy(), qb["b"].numpy())
     assert np.array_equal(top_a[0], top_b[0])
-    if exact:
-        assert np.array_equal(top_a[1], top_b[1])
+    assert np.array_equal(np.asarray(top_a[1]).view(np.int32),
+                          np.asarray(top_b[1]).view(np.int32))
     ska, skb = audit(lambda: a.sketch_of("c"), lambda: b.sketch_of("c"))
     assert skb.spec.width == ska.spec.width
     got, want = tc.to_numpy(skb.table), np.asarray(ska.table)
     assert got.dtype == want.dtype and got.shape == want.shape
-    if exact:
-        assert np.array_equal(got, want)
+    assert np.array_equal(got, want)
 
 
 def test_cms32_service_exact_with_audit():
@@ -176,7 +161,7 @@ def test_cms32_service_exact_with_audit():
 
 @pytest.mark.parametrize("name,packed", [("CMLS16", False), ("CMLS16", True),
                                          ("CMLS8", False), ("CMLS8", True)])
-def test_log_service_bounded(name, packed):
+def test_log_service_exact(name, packed):
     # a one-chunk ring: b's extra traffic overflows it, so enqueue_many
     # falls back to enqueue and flushes the plane on queue pressure, and
     # every flush lands all three rows in one fill class
@@ -185,7 +170,7 @@ def test_log_service_bounded(name, packed):
     assert any("update_score_rows" in ta for ta, _ in audit.calls)
     audit(lambda: a.flush(), lambda: b.flush())
     _reads(a, b, name, audit)
-    assert _compare(a, b, name, packed) == 0  # measured; bound checked inside
+    assert _compare(a, b, name, packed) == 0
 
 
 def test_carry_over_mid_stream_stays_equal():

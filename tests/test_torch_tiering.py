@@ -5,12 +5,12 @@ a seed go through a tiered JAX service, a tiered port service and an
 untiered port service (WIDTH = 256).  Within the port, tiered and
 untiered must agree exactly: tables (`stacked_tables`), `query_all`,
 `topk`.  Across the packages every leaf must agree: cell states, the
-cold store, the queue and fill mirrors and the membership exactly,
-estimates exactly for CMS32 and within 8 ulp for log cells (float32
-`expm1` differs between JAX and torch on the CPU, see
-test_torch_counters).  Also: the tier ops (`tier_spill` with grid rows
-that are not `arange(C)`, `tier_query`, `tier_demote`, `tier_promote`),
-`cold_advance` against `ops.rotation_mask`, `plan_swap` under both
+cold store, the queue and fill mirrors, the membership and the
+estimates exactly, bit for bit in every format (the port computes the
+reference's float32 graphs, `core/xla_f32.py`).  Also: the tier ops
+(`tier_spill` with grid rows that are not `arange(C)`, `tier_query`,
+`tier_demote`, `tier_promote`), `cold_advance` against
+`ops.rotation_mask`, `plan_swap` under both
 policies with ties, manifest v8 tiered snapshots both ways, the cold
 store's repack, and a windowed `admit` on a cold tenant.
 """
@@ -117,22 +117,25 @@ def _jax_tree(a):
     return jax.tree_util.tree_map(np.asarray, a._tree())
 
 
-def _assert_trees(ta, tb, exact_est: bool):
+def _same_bits(got, want, err_msg=""):
+    """Equal arrays; float32 ones bit for bit."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, err_msg
+    if got.dtype == np.float32:
+        got, want = got.view(np.int32), want.view(np.int32)
+    np.testing.assert_array_equal(got, want, err_msg=err_msg)
+
+
+def _assert_trees(ta, tb):
     """Every leaf of two services' checkpoint trees: same paths, shapes
-    and dtypes; equal, estimates within 8 ulp for log cells."""
+    and dtypes, and equal (estimates bit for bit)."""
     fa = jax.tree_util.tree_flatten_with_path(ta)[0]
     fb = jax.tree_util.tree_flatten_with_path(tb)[0]
     assert [jax.tree_util.keystr(p) for p, _ in fa] == \
         [jax.tree_util.keystr(p) for p, _ in fb]
     for (path, x), (_, y) in zip(fa, fb):
         where = jax.tree_util.keystr(path)
-        assert x.shape == y.shape and x.dtype == y.dtype, where
-        if "estimates" in where and not exact_est:
-            fin = np.isfinite(x)
-            assert np.array_equal(fin, np.isfinite(y)), where
-            np.testing.assert_array_max_ulp(y[fin], x[fin], maxulp=8)
-        else:
-            np.testing.assert_array_equal(x, y, err_msg=where)
+        _same_bits(y, x, err_msg=where)
 
 
 def _assert_tier(ja, tb):
@@ -146,20 +149,14 @@ def _assert_tier(ja, tb):
     np.testing.assert_array_equal(ja.cold, tb.cold)
 
 
-def _assert_answers(a, b, c, names, exact: bool, k=5, probes=None,
-                    topk_names=None):
+def _assert_answers(a, b, c, names, k=5, probes=None, topk_names=None):
     """query_all and topk (of `topk_names`, default all): port tiered ==
-    port untiered exactly; JAX tiered == port tiered (exact, or within 8
-    ulp for log cells)."""
+    port untiered, and JAX tiered == port tiered, bit for bit."""
     probes = np.arange(32, dtype=np.uint32) if probes is None else probes
     qa, qb, qc = a.query_all(probes), b.query_all(probes), c.query_all(probes)
     for n in names:
         assert torch.equal(qb[n], qc[n]), n
-        if exact:
-            np.testing.assert_array_equal(np.asarray(qa[n]), qb[n].numpy())
-        else:
-            np.testing.assert_array_max_ulp(qb[n].numpy(), np.asarray(qa[n]),
-                                            maxulp=8)
+        _same_bits(qb[n].numpy(), qa[n], err_msg=n)
     if b.track_top is None:
         return
     for n in names if topk_names is None else topk_names:
@@ -168,8 +165,7 @@ def _assert_answers(a, b, c, names, exact: bool, k=5, probes=None,
         kc, vc = c.topk(n, k)
         assert np.array_equal(kb, kc) and np.array_equal(vb, vc), n
         np.testing.assert_array_equal(np.asarray(ka), kb)
-        np.testing.assert_array_max_ulp(vb, np.asarray(va),
-                                        maxulp=0 if exact else 8)
+        _same_bits(vb, va, err_msg=n)
 
 
 def _assert_stacks(a, b, c, spec):
@@ -200,8 +196,8 @@ def test_tiered_matches_resident(regime, tracked):
                                  plane="p0").value > 0
     _assert_tier(a.planes[0].tier, b.planes[0].tier)
     _assert_stacks(a, b, c, _specs()[0])
-    _assert_trees(_jax_tree(a), convert.service_to_numpy(b)[1], False)
-    _assert_answers(a, b, c, names, exact=False)
+    _assert_trees(_jax_tree(a), convert.service_to_numpy(b)[1])
+    _assert_answers(a, b, c, names)
     assert b.tier_occupancy() == a.tier_occupancy()
 
 
@@ -216,7 +212,7 @@ def test_tiered_matches_resident_packed(name):
     assert b.planes[0].tier.cold.dtype == np.uint32
     _assert_tier(a.planes[0].tier, b.planes[0].tier)
     _assert_stacks(a, b, c, _specs(name, True)[0])
-    _assert_answers(a, b, c, names, exact=name == "CMS32")
+    _assert_answers(a, b, c, names)
 
 
 def test_acceptance_128_tenants_8_hot():
@@ -245,8 +241,7 @@ def test_acceptance_128_tenants_8_hot():
     qa, qb, qc = a.query_all(probes), b.query_all(probes), c.query_all(probes)
     for n in names:
         assert torch.equal(qb[n], qc[n])
-        np.testing.assert_array_max_ulp(qb[n].numpy(), np.asarray(qa[n]),
-                                        maxulp=8)
+        _same_bits(qb[n].numpy(), np.asarray(qa[n]))
     for n in names[:4] + names[40:44]:
         kb, vb = b.topk(n, 5)
         kc, vc = c.topk(n, 5)
@@ -269,7 +264,7 @@ def test_demote_enqueue_promote_roundtrip():
         assert int(s.metrics.counter("tier_demotions",
                                      plane="p0").value) == 2
     _assert_tier(a.planes[0].tier, tier)
-    _assert_answers(a, b, c, names, exact=False, k=4)
+    _assert_answers(a, b, c, names, k=4)
 
 
 def test_tiered_dispatch_audit_matches_reference():
@@ -340,26 +335,23 @@ def test_windowed_tiered_matches_resident_mid_rotation():
     _assert_tier(a.planes[0].tier, b.planes[0].tier)
     np.testing.assert_array_equal(_tnp(b.planes[0].stacked_tables()),
                                   _tnp(c.planes[0].tables))
-    _assert_trees(_jax_tree(a), convert.service_to_numpy(b)[1], False)
+    _assert_trees(_jax_tree(a), convert.service_to_numpy(b)[1])
     probes = np.arange(32, dtype=np.uint32)
     for n in names:
         for kw in ({}, {"n_buckets": 2}, {"mode": "max"}, {"gamma": 0.9}):
             qb, qc = b.query(n, probes, **kw), c.query(n, probes, **kw)
             assert torch.equal(qb, qc), (n, kw)
-            if len(kw) == 0 or "n_buckets" in kw:
-                np.testing.assert_array_max_ulp(
-                    qb.numpy(), np.asarray(a.query(n, probes, **kw)),
-                    maxulp=8)
+            _same_bits(qb.numpy(), np.asarray(a.query(n, probes, **kw)))
         kb, vb = b.topk(n, 4)
         kc, vc = c.topk(n, 4)
         assert np.array_equal(kb, kc) and np.array_equal(vb, vc)
         ka, va = a.topk(n, 4)
         np.testing.assert_array_equal(np.asarray(ka), kb)
+        _same_bits(vb, va)
     qa, qb, qc = (s.query_all(probes) for s in (a, b, c))
     for n in names:
         assert torch.equal(qb[n], qc[n])
-        np.testing.assert_array_max_ulp(qb[n].numpy(), np.asarray(qa[n]),
-                                        maxulp=8)
+        _same_bits(qb[n].numpy(), np.asarray(qa[n]))
 
 
 def test_windowed_admit_on_cold_tenant():
@@ -445,13 +437,12 @@ def test_manifest_v8_tiered_both_ways(direction, tmp_path):
     assert dst._meta()["tier"] == {"max_hot_tenants": 3, "policy": "lru"}
     assert dst._meta()["planes"] == src._meta()["planes"]
     _assert_tier(jt, tt)
-    _assert_trees(src_tree, dst_tree, True)
+    _assert_trees(src_tree, dst_tree)
     probes = np.arange(32, dtype=np.uint32)
     for step in range(2):
         qs, qd = src.query_all(probes), dst.query_all(probes)
         for n in names:
-            np.testing.assert_array_max_ulp(np.asarray(qs[n]),
-                                            np.asarray(qd[n]), maxulp=8)
+            _same_bits(np.asarray(qs[n]), np.asarray(qd[n]))
         for s in (src, dst):
             s.enqueue_many({names[8]: np.arange(64, dtype=np.uint32)})
             s.flush()
@@ -694,8 +685,7 @@ def test_tier_spill_matches_reference(fmt, scored):
     if scored:
         (want, west), (got, gest), (plain, pest) = want, got, plain
         assert torch.equal(gest, pest)
-        np.testing.assert_array_max_ulp(gest.numpy(), np.asarray(west),
-                                        maxulp=0 if fmt[0] == "CMS32" else 8)
+        _same_bits(gest.numpy(), np.asarray(west))
     assert got is tab  # in place
     assert torch.equal(tc.signed_view(got), tc.signed_view(plain))
     np.testing.assert_array_equal(_cells(_tnp(got), js),
@@ -707,7 +697,7 @@ def test_tier_query_matches_reference():
     probes = keys[:, :64]
     want = jops.tier_query(jnp.asarray(stack), js, jnp.asarray(probes))
     got = tops.tier_query(tc.from_numpy(stack, "cpu"), ts, probes)
-    np.testing.assert_array_max_ulp(got.numpy(), np.asarray(want), maxulp=8)
+    _same_bits(got.numpy(), np.asarray(want))
     shared = tops.tier_query(tc.from_numpy(stack, "cpu"), ts, probes[0])
     assert torch.equal(shared[1], tops.tier_query(
         tc.from_numpy(stack[1:2], "cpu"), ts, probes[0])[0])
@@ -750,16 +740,15 @@ def test_tier_state_rides_convert_both_ways():
     meta_b, tree_b = convert.service_to_numpy(b)
     assert meta_b["planes"] == meta["planes"] and meta_b["tier"] == \
         meta["tier"]
-    _assert_trees(_jax_tree(a), tree_b, True)
+    _assert_trees(_jax_tree(a), tree_b)
     _assert_tier(a.planes[0].tier, b.planes[0].tier)
     probes = np.arange(16, dtype=np.uint32)
     qa, qb = a.query_all(probes), b.query_all(probes)
     for n in names:
-        np.testing.assert_array_max_ulp(qb[n].numpy(), np.asarray(qa[n]),
-                                        maxulp=8)
+        _same_bits(qb[n].numpy(), np.asarray(qa[n]))
     meta_b, tree_b = convert.service_to_numpy(b)  # after the flushing read
     c = convert.service_from_numpy(meta_b, tree_b, device="cpu")
-    _assert_trees(convert.service_to_numpy(c)[1], tree_b, True)
+    _assert_trees(convert.service_to_numpy(c)[1], tree_b)
     # the state was copied, not shared: b moves on, c stays
     b.enqueue_many({names[0]: np.arange(8, dtype=np.uint32)})
     assert b.planes[0].tier.hfill[0] == 8 and c.planes[0].tier.hfill[0] == 0

@@ -22,13 +22,23 @@ Two ways to use a staging:
 
 `upload(device, *arrays)` goes through one shared staging per device,
 which the tracked, untracked and windowed planes' flushes all use.
+
+Each staged slot counts into the active scopes (`obs/scope.py`):
+`upload_bytes`, the bytes packed for the device, and `uploads`, one a
+slot (on CUDA each is one copy; on the CPU the ingest ring reads its
+slot in place).  A slot whose last copy has not passed counts one
+`staging_waits` and waits inside a `staging_wait` span.  These
+`COUNTERS` describe this process's uploads, not a sketch's state.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.obs import scope, trace
+
 ALIGN = 8  # bytes: every packed array starts at a multiple of this
+COUNTERS = ("upload_bytes", "uploads", "staging_waits")
 
 
 class HostStaging:
@@ -39,6 +49,7 @@ class HostStaging:
     def __init__(self, device, slots: int = 32, dtype=torch.uint8):
         self.device = torch.device(device)
         self.dtype = dtype
+        self._itemsize = torch.empty(0, dtype=dtype).element_size()
         self._cuda = self.device.type == "cuda"
         self.host = [torch.empty(0, dtype=dtype) for _ in range(slots)]
         self._copied = ([torch.cuda.Event() for _ in range(slots)]
@@ -53,7 +64,11 @@ class HostStaging:
         self._slot = (slot + 1) % len(self.host)
         self._last = slot
         if self._cuda and not self._copied[slot].query():
-            self._copied[slot].synchronize()
+            scope.count("staging_waits")
+            with trace.span("staging_wait"):
+                self._copied[slot].synchronize()
+        scope.count("uploads")
+        scope.count("upload_bytes", size * self._itemsize)
         if self.host[slot].numel() < size:
             self.host[slot] = torch.empty(size, dtype=self.dtype,
                                           pin_memory=self._cuda)

@@ -40,6 +40,7 @@ from repro_torch.core.hashing import as_i64, host_row_seeds
 from repro_torch.kernels import ref
 from repro_torch.kernels import sketch as ksk
 from repro_torch.kernels.sketch import CHUNK
+from repro_torch.obs import scope, trace
 
 LANES = 128
 WINDOW_MODES = ("sum", "max")
@@ -55,45 +56,33 @@ ONE_SHOT_UPDATE_TABLE_BYTES = 12 * 1024 * 1024
 
 ENGINES = ("auto", "plain")
 
-_DEFAULT_SCOPE: collections.Counter = collections.Counter()
-_SCOPES: list[collections.Counter] = [_DEFAULT_SCOPE]
+_launch = scope.dispatch
 
 
-def _launch(name: str) -> None:
-    for scope in _SCOPES:
-        scope[name] += 1
-
-
-class audit_scope:
+class audit_scope(scope.active):
     """Context manager scoping a dispatch tally to one with-block.
 
         with ops.audit_scope() as tally:
             svc.flush()
         assert dict(tally) == {"update_score_rows": 1}
-    """
 
-    def __init__(self):
-        self.tally = collections.Counter()
+    The block's other tallies are on `self.scope` (`obs/scope.py`), and
+    spans opened below the service inside it go to `tracer`."""
+
+    def __init__(self, tracer=None):
+        super().__init__(scope.Scope(tracer))
 
     def __enter__(self) -> collections.Counter:
-        _SCOPES.append(self.tally)
-        return self.tally
-
-    def __exit__(self, *exc) -> None:
-        # remove by identity: Counters compare by value
-        for i in range(len(_SCOPES) - 1, -1, -1):
-            if _SCOPES[i] is self.tally:
-                del _SCOPES[i]
-                break
+        return super().__enter__().dispatches
 
 
 def launch_counts() -> dict[str, int]:
     """Snapshot of the default scope's {op: dispatches} since its reset."""
-    return dict(_DEFAULT_SCOPE)
+    return dict(scope.DEFAULT.dispatches)
 
 
 def reset_launch_counts() -> None:
-    _DEFAULT_SCOPE.clear()
+    scope.DEFAULT.dispatches.clear()
 
 
 def _check_engine(engine: str) -> None:
@@ -320,7 +309,8 @@ def _update_chunked(tables, spec, keys, weights, rng, grid, engine,
     with `rows` the row-mapped one, which takes them drawn."""
     total, urows = grid
     dev = tables.device
-    sorted_keys, mult = sk.dedup_weighted(keys, weights)
+    with trace.span("dedup") as sp:
+        sorted_keys, mult = sp.sync(sk.dedup_weighted(keys, weights))
     kw = dict(counter=spec.counter, cpl=spec.cells_per_lane)
     if engine == "plain":
         uniforms = _parity_uniforms(rng, keys.shape[1], total, urows, dev)
@@ -435,7 +425,9 @@ def _parity_uniforms(rng, n_cols: int, total: int, rows, device
     """Uniforms for an R-row update, bit-identical to the reference's
     full (total, n_cols) draw gathered at `rows` -- drawn directly for
     just those rows."""
-    return prng.uniform_rows(rng, total, n_cols, rows, device=device)
+    with trace.span("uniforms") as sp:
+        return sp.sync(prng.uniform_rows(rng, total, n_cols, rows,
+                                         device=device))
 
 
 def update_score_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
@@ -462,7 +454,8 @@ def update_score_rows(tables: torch.Tensor, spec: sk.SketchSpec, keys, rng,
     keys = as_device_keys(keys, dev)
     weights = _weights(keys, weights)
     _launch("update_score_rows")
-    sorted_keys, mult = sk.dedup_weighted(keys, weights)
+    with trace.span("dedup") as sp:
+        sorted_keys, mult = sp.sync(sk.dedup_weighted(keys, weights))
     cand = as_device_keys(cand, dev)
     if engine == "plain":
         uniforms = _parity_uniforms(rng, keys.shape[1], *grid, dev)

@@ -213,9 +213,12 @@ class _DeviceRing:
         rows = np.asarray(rows, np.int64)
         count = np.fromiter((b.size for b in batches), np.int64,
                             len(batches))
-        self.queue = ops.queue_append(self.queue, self._stage(batches), rows,
-                                      self.fill[rows], count,
-                                      engine=self.engine)
+        with obs.trace.span("ring_stage"):
+            keys = self._stage(batches)
+        with obs.trace.span("queue_append"):
+            self.queue = ops.queue_append(self.queue, keys, rows,
+                                          self.fill[rows], count,
+                                          engine=self.engine)
         self.fill[rows] += count  # rows are unique (the append checks)
 
     def live_slice(self, rows=None):
@@ -699,8 +702,9 @@ class TenantPlane(_PlaneBase):
                     engine=self.engine))
             return
         rows_d = self._rows_d(hot_g)
-        cand, valid = topk.candidates(self._tracker_rows(rows_d), keys,
-                                      weights > 0)
+        with tr.span("tracker_candidates", plane=self.label) as sp:
+            cand, valid = sp.sync(topk.candidates(self._tracker_rows(rows_d),
+                                                  keys, weights > 0))
         with tr.span("update_score_rows", plane=self.label) as sp:
             _, est = ops.update_score_rows(
                 self.tables, self.spec, keys, rng, slots, cand,
@@ -741,8 +745,9 @@ class TenantPlane(_PlaneBase):
         with tr.span("queue_gather", plane=self.label) as sp:
             keys, weights = sp.sync(self.ring.class_slice(rows_g, cols))
         rows_d = self._rows_d(rows_g)
-        cand, valid = topk.candidates(self._tracker_rows(rows_d), keys,
-                                      weights > 0)
+        with tr.span("tracker_candidates", plane=self.label) as sp:
+            cand, valid = sp.sync(topk.candidates(self._tracker_rows(rows_d),
+                                                  keys, weights > 0))
         with tr.span("update_score_rows", plane=self.label) as sp:
             self.tables, est = ops.update_score_rows(
                 self.tables, self.spec, keys, rng, rows_g, cand,
@@ -1265,6 +1270,7 @@ class CountService:
         self._m_events = self.metrics.counter("events")
         self._m_flushes = self.metrics.counter("flushes")
         self._audit_depth = 0
+        self._counted: dict = {}  # scope count name -> its registry Counter
         for name in tenants:
             self.add_tenant(name)
 
@@ -1283,20 +1289,28 @@ class CountService:
 
     @contextlib.contextmanager
     def _audited(self):
-        """Scope one public call's dispatches into the registry's per-op
-        `dispatch{op=...}` counters (re-entrant calls fold into the
+        """Scope one public call (`obs/scope.py`): its dispatches fold
+        into the registry's per-op `dispatch{op=...}` counters and its
+        staging counts into theirs, and spans opened below the service
+        go to the service's tracer (re-entrant calls fold into the
         outermost scope)."""
         if self._audit_depth:
             yield
             return
         self._audit_depth += 1
+        audit = ops.audit_scope(self.tracer)
         try:
-            with ops.audit_scope() as tally:
+            with audit as tally:
                 yield
         finally:
             self._audit_depth -= 1
             for op, n in tally.items():
                 self.metrics.counter("dispatch", op=op).inc(n)
+            for name, n in audit.scope.counts.items():
+                c = self._counted.get(name)
+                if c is None:
+                    c = self._counted[name] = self.metrics.counter(name)
+                c.inc(n)
 
     @property
     def spec(self) -> Optional[SketchSpec]:
@@ -1460,7 +1474,7 @@ class CountService:
     def flush(self) -> int:
         """Land every DIRTY plane's pending events (clean planes cost no
         dispatch and no PRNG draw).  Returns the events ingested."""
-        with self._audited():
+        with self._audited(), self.tracer.span("flush"):
             total = sum(plane.flush() for plane in self.dirty_planes)
         if total:
             self._m_flushes.inc()
@@ -1531,12 +1545,14 @@ class CountService:
                 raise ValueError(f"per-tenant probes need {len(self._order)} "
                                  f"rows, got {keys.shape[0]}")
             # one upload for every plane, without a synchronize
-            probes = ops.read_keys(_as_keys(keys).reshape(keys.shape),
-                                   self.device)
+            with self.tracer.span("read_upload"):
+                probes = ops.read_keys(_as_keys(keys).reshape(keys.shape),
+                                       self.device)
             out: dict[str, torch.Tensor] = {}
             for plane in self.planes:
-                est = plane.query_rows(self._rows_of(plane, probes)
-                                       if per_tenant else probes)
+                with self.tracer.span("query_rows", plane=plane.label):
+                    est = plane.query_rows(self._rows_of(plane, probes)
+                                           if per_tenant else probes)
                 out.update(zip(plane.names, est.unbind(0)))
             return sp.sync(out)
 
@@ -1629,6 +1645,15 @@ class CountService:
             base["tier"] = p.tier.meta()
         return base
 
+    def _metrics_meta(self) -> dict:
+        """The registry's snapshot less the host staging's counters,
+        which count this process's uploads and not the sketch's state
+        (the manifest stays the reference's)."""
+        snap = self.metrics.snapshot()
+        for name in staging.COUNTERS:
+            snap["counters"].pop(name, None)
+        return snap
+
     def _meta(self) -> dict:
         """The manifest metadata, as the reference writes it (v8: the
         plane layout, the PRNG lanes, the admission policies (v4), the
@@ -1641,7 +1666,7 @@ class CountService:
             "track_top": self.track_top,
             "tenant_order": self.tenants,
             "stats": dict(self.stats),
-            "metrics": self.metrics.snapshot(),
+            "metrics": self._metrics_meta(),
             "admission": {name: dataclasses.asdict(spec)
                           for name, spec in self._admission.items()},
             "planes": [self._plane_meta(p, {"spec": _spec_meta(p.spec),

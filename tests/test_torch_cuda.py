@@ -17,6 +17,8 @@ SASRec / BERT4Rec, DimeNet) have no kernel: they hold the card to the CPU
 within stated float32 tolerances; the routed exchange at world size 1 on
 NCCL is held to its unrouted forms.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -675,6 +677,79 @@ def test_flush_does_not_synchronize(cuda):
                             assert np.array_equal(x, lb[key][sub]), (key, sub)
                     else:
                         assert np.array_equal(va, lb[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["tracked", "windowed"])
+def test_profiler_ranges_add_no_synchronize(cuda, plane):
+    """With the tracer off and a torch profiler recording, every span is
+    a `cml.*` profiler range: appends and a flush (the windowed one
+    rotating and flushing at a boundary first) still run under
+    torch.cuda.set_sync_debug_mode("error"), and land what the same
+    stream lands without a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    spec = _spec("CMLS16", False)
+    wspec = WindowSpec(sketch=spec, buckets=4, interval=60.0)
+    names = ["x", "y", "z"]
+    rng = np.random.default_rng(9)
+    stream = [({n: (rng.zipf(1.3, 700) % 4000).astype(np.uint32)
+                for n in names}, ts) for ts in (10.0, 140.0)]
+    out = []
+    for profiled in (False, True):
+        svc = CountService(spec, queue_capacity=4096, track_top=8,
+                           device=cuda)
+        for n in names:
+            svc.add_tenant(n, window=wspec if plane == "windowed" else None)
+        svc.enqueue_many(stream[0][0], ts=stream[0][1]
+                         if plane == "windowed" else None)
+        svc.flush()
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            if profiled:
+                prof = stack.enter_context(profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                svc.enqueue_many(stream[1][0], ts=stream[1][1]
+                                 if plane == "windowed" else None)
+                svc.flush()
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+            torch.cuda.synchronize()
+        if profiled:
+            got = {e.name for e in prof.events()}
+            want = {"cml.enqueue_many", "cml.ring_stage", "cml.flush",
+                    "cml.flush_epoch", "cml.dedup"}
+            if plane == "windowed":
+                want |= {"cml.window_rotate", "cml.uniforms"}
+            assert want <= got, want - got
+        p = svc.planes[0]
+        out.append([tc.to_numpy(p.tables), tc.to_numpy(p.tracker.keys),
+                    p.tracker.estimates.cpu().numpy()])
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_emit_nvtx_opens_the_ranges(cuda):
+    """Under torch.autograd.profiler.emit_nvtx (the NVTX ranges nsys
+    records) the spans are ranges too, with the tracer off: the flag they
+    read is set, a span is a range, and appends and a flush run inside
+    it; outside it a span is the null span again."""
+    from repro_torch.obs import trace
+    svc = CountService(_spec("CMLS16", False), queue_capacity=4096,
+                       track_top=8, device=cuda)
+    svc.add_tenant("x")
+    assert not svc.tracer.enabled
+    assert svc.tracer.span("flush") is trace._NULL_SPAN
+    with torch.autograd.profiler.emit_nvtx():
+        assert trace._recording()
+        assert isinstance(svc.tracer.span("flush"), trace._Range)
+        svc.enqueue_many({"x": np.arange(700, dtype=np.uint32)})
+        assert svc.flush() == 700
+    torch.cuda.synchronize()
+    assert svc.tracer.span("flush") is trace._NULL_SPAN
 
 
 @pytest.mark.cuda

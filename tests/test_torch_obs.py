@@ -10,7 +10,12 @@
     probe adds no dispatch to an append;
   * `to_prometheus` / `to_chrome_trace` text equal to the reference's for
     the same snapshot and events, and the launcher's `--metrics-out` /
-    `--trace-out` files.
+    `--trace-out` files;
+  * the port's own tracing (no reference counterpart): the shared null
+    span with the tracer off and no profiler, the `cml.*` profiler ranges
+    nested as the service's phases are, span ids / parents / roots and
+    self time, the staging counters, and the same tables, heaps and
+    answers with the tracer off, on and under a profiler.
 
 Tolerance: none.  Sampling, shadow counts and exports are integer or text
 work; ARE deciles come from the services' estimates, which are equal bit
@@ -27,11 +32,14 @@ from repro.core import counters as jc
 from repro.core import sketch as jsk
 from repro.stream import CountService as JService
 from repro_torch import obs as tobs
+from repro_torch.core import staging as tstaging
 from repro_torch.core import counters as tc
 from repro_torch.core import sketch as tsk
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve_counts
+from repro_torch.obs import trace as ttrace
 from repro_torch.stream import CountService as TService
+from repro_torch.stream import WindowSpec as TWindowSpec
 
 
 def _zipf(n, vocab, seed=0):
@@ -234,3 +242,226 @@ def test_launcher_writes_metrics_and_trace(tmp_path, capsys):
     names = {e["name"] for e in events}
     assert {"enqueue_many", "flush_epoch", "query_all"} <= names
     assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events)
+
+
+# --------------------------------------------------------------------------
+# the port's spans, profiler ranges and staging counters
+# --------------------------------------------------------------------------
+
+_PLANES = ("tracked", "untracked", "windowed")
+
+
+def _traced_service(plane, tracer=None):
+    """A small CPU service of one plane kind (beside the tracked kinds, a
+    second plane of another spec) and its drive: two appends, a flush
+    and a read; the windowed drive crosses two interval boundaries in
+    its second append (a rotation and a boundary flush)."""
+    spec = tsk.SketchSpec(width=2048, depth=2, counter=tc.CMLS16)
+    svc = TService(spec, queue_capacity=4096, seed=5,
+                   track_top=None if plane == "untracked" else 8,
+                   tracer=tracer, device="cpu")
+    names = ["a", "b", "c"]
+    wspec = TWindowSpec(sketch=spec, buckets=4, interval=60.0)
+    for n in names:
+        svc.add_tenant(n, window=wspec if plane == "windowed" else None)
+    svc.add_tenant("m", spec=tsk.SketchSpec(width=256, depth=2,
+                                            counter=tc.CMS32))
+
+    def drive():
+        for step, ts in enumerate((0.0, 130.0)):
+            # the untracked drive leaves tenant "c" idle: the row-mapped
+            # update (and its uniforms), not the dense one
+            active = names[:2] if plane == "untracked" else names
+            events = {n: _zipf(700 + 300 * i, 500, seed=10 * step + i)
+                      for i, n in enumerate(active)}
+            if plane == "windowed":
+                svc.enqueue_many({"m": _zipf(40, 50, seed=step)})
+                svc.enqueue_many(events, ts=ts)
+            else:
+                svc.enqueue_many({**events, "m": _zipf(40, 50, seed=step)})
+        svc.flush()
+        return svc.query_all(np.arange(64, dtype=np.uint32))
+    return svc, drive
+
+
+def test_null_span_without_tracer_or_profiler():
+    tracer = tobs.Tracer()
+    assert tracer.span("flush") is ttrace._NULL_SPAN
+    assert ttrace.span("dedup") is ttrace._NULL_SPAN
+    svc, drive = _traced_service("tracked", tracer)
+    drive()
+    assert tracer.events == [] and tracer.summary() == {}
+
+
+# (inner, outer): every `cml.<inner>` range lies inside a `cml.<outer>`
+# range (of one of the names, for a tuple)
+_NESTED = {
+    "tracked": [("ring_stage", "enqueue_many"),
+                ("queue_append", "enqueue_many"),
+                ("flush_epoch", "flush"), ("queue_gather", "flush_epoch"),
+                ("tracker_candidates", "flush_epoch"),
+                ("update_score_rows", "flush_epoch"),
+                ("dedup", "update_score_rows"),
+                ("tracker_reselect", "flush_epoch"),
+                ("read_upload", "query_all"), ("query_rows", "query_all")],
+    "untracked": [("ring_stage", "enqueue_many"),
+                  ("queue_append", "enqueue_many"),
+                  ("flush_epoch", "flush"), ("queue_gather", "flush_epoch"),
+                  # the metrics plane's all-active flush is the dense
+                  # update: its dedup lies outside every update_rows
+                  ("update_rows", "flush_epoch"), ("dedup", "flush_epoch"),
+                  ("uniforms", "update_rows"),
+                  ("read_upload", "query_all"),
+                  ("query_rows", "query_all")],
+    "windowed": [("ring_stage", "enqueue_many"),
+                 ("queue_append", "enqueue_many"),
+                 ("window_rotate", "enqueue_many"),
+                 # a boundary flush inside the append, the last one
+                 # inside the service's flush
+                 ("flush_epoch", ("enqueue_many", "flush")),
+                 ("window_update", "flush_epoch"),
+                 ("dedup", ("window_update", "update_score_rows")),
+                 ("uniforms", "window_update"),
+                 ("tracker_refresh", "flush_epoch"),
+                 ("read_upload", "query_all"), ("query_rows", "query_all")],
+}
+
+
+@pytest.mark.parametrize("plane", _PLANES)
+def test_profiler_ranges_nest_as_the_phases(plane):
+    from torch.profiler import ProfilerActivity, profile
+    tracer = tobs.Tracer()
+    svc, drive = _traced_service(plane, tracer)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        drive()
+    ranges: dict = {}
+    for e in prof.events():
+        if e.name.startswith(ttrace.PREFIX):
+            ranges.setdefault(e.name[len(ttrace.PREFIX):], []).append(
+                (e.time_range.start, e.time_range.end))
+    assert tracer.events == []          # ranges only: the tracer is off
+    for inner, outer in _NESTED[plane]:
+        outer = [outer] if isinstance(outer, str) else outer
+        spans = [iv for name in outer for iv in ranges.get(name, [])]
+        assert ranges.get(inner) and spans, (inner, outer)
+        for a, b in ranges[inner]:
+            assert any(x <= a and b <= y for x, y in spans), (inner, outer)
+
+
+@pytest.mark.parametrize("plane", _PLANES)
+def test_span_ids_form_one_tree_per_call(plane):
+    tracer = tobs.Tracer(enabled=True)
+    svc, drive = _traced_service(plane, tracer)
+    drive()
+    events = tracer.events
+    by_id = {e["args"]["id"]: e for e in events}
+    assert len(by_id) == len(events)
+    roots = [e for e in events if e["args"]["parent"] is None]
+    # one tree a public call: 2 appends (4 windowed), the flush, the read
+    assert [r["name"] for r in sorted(roots, key=lambda r: r["ts"])] == (
+        ["enqueue_many"] * (4 if plane == "windowed" else 2)
+        + ["flush", "query_all"])
+    for e in events:
+        a = e["args"]
+        if a["parent"] is None:
+            assert a["root"] == a["id"]
+            continue
+        parent = by_id[a["parent"]]
+        assert a["root"] == parent["args"]["root"]
+        assert parent["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= parent["ts"] + parent["dur"] + 1e-6
+    covered: dict = {}
+    for e in events:
+        if e["args"]["parent"] is not None:
+            covered[e["args"]["parent"]] = (covered.get(e["args"]["parent"],
+                                                        0.0) + e["dur"])
+    summary = tracer.summary()
+    for name, s in summary.items():
+        own = [e for e in events if e["name"] == name]
+        want = sum(e["dur"] - covered.get(e["args"]["id"], 0.0) for e in own)
+        assert s["count"] == len(own)
+        assert s["self_us"] == pytest.approx(want, rel=1e-12, abs=1e-9)
+        assert 0 <= s["self_us"] <= s["total_us"] + 1e-9
+
+
+@pytest.mark.parametrize("plane", _PLANES)
+def test_upload_bytes_count_what_the_stagings_packed(plane, monkeypatch):
+    """The count is the ring's, rows x CHUNK-rounded width x 4 bytes an
+    append, plus the flush and read inputs handed to the shared staging
+    (each array at its 8-byte-aligned size)."""
+    handed = []
+    upload = tstaging.HostStaging.upload
+
+    def rec(self, *arrays):
+        handed.append(sum(-(-np.asarray(a).nbytes // tstaging.ALIGN)
+                          * tstaging.ALIGN for a in arrays))
+        return upload(self, *arrays)
+    monkeypatch.setattr(tstaging.HostStaging, "upload", rec)
+    appends = []
+    svc, drive = _traced_service(plane)
+    em = svc.enqueue_many
+
+    def enqueue_many(events, ts=None):
+        by_plane: dict = {}
+        for name, keys in events.items():
+            by_plane.setdefault(id(svc._lookup(name)[0]), []).append(
+                np.asarray(keys).size)
+        appends.extend(by_plane.values())
+        return em(events, ts=ts)
+    svc.enqueue_many = enqueue_many
+    drive()
+    counters = svc.metrics.snapshot()["counters"]
+    ring = sum(len(sizes) * tops.CHUNK * -(-max(sizes) // tops.CHUNK) * 4
+               for sizes in appends)
+    assert ring > 0 and handed
+    assert counters["upload_bytes"] == ring + sum(handed)
+    assert counters["uploads"] == len(appends) + len(handed)
+    assert "staging_waits" not in counters  # the CPU never waits
+
+
+def _state(svc, answers) -> dict:
+    """{name: host array} of every plane's tables, ring and heap, and the
+    read's answers."""
+    out = {f"answer.{n}": a.numpy().copy() for n, a in answers.items()}
+    for p in svc.planes:
+        out[p.label] = tc.to_numpy(p.tables).copy()
+        out[p.label + ".ring"] = tc.to_numpy(p.ring.queue).copy()
+        if p.tracker is not None:
+            out[p.label + ".heap_keys"] = tc.to_numpy(p.tracker.keys).copy()
+            out[p.label + ".heap_est"] = p.tracker.estimates.numpy().copy()
+            out[p.label + ".heap_filled"] = p.tracker.filled.numpy().copy()
+    return out
+
+
+@pytest.mark.parametrize("plane", _PLANES)
+def test_tracing_changes_no_result(plane):
+    from torch.profiler import ProfilerActivity, profile
+    runs = []
+    for mode in ("off", "on", "profiled"):
+        svc, drive = _traced_service(plane,
+                                     tobs.Tracer(enabled=mode == "on"))
+        if mode == "profiled":
+            with profile(activities=[ProfilerActivity.CPU]):
+                answers = drive()
+        else:
+            answers = drive()
+        runs.append(_state(svc, answers))
+    for other in runs[1:]:
+        assert other.keys() == runs[0].keys()
+        for k, want in runs[0].items():
+            np.testing.assert_array_equal(other[k], want, err_msg=k)
+
+
+def test_ops_spans_outside_a_service_call():
+    """A direct op call: its spans are profiler ranges while a profiler
+    records, the null span otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+    spec = tsk.SketchSpec(width=1024, depth=2, counter=tc.CMLS16)
+    tables = tc.zeros((4, 2, spec.storage_width), spec.storage_dtype, "cpu")
+    keys = torch.from_numpy(_zipf(2 * 1024, 300).reshape(2, -1))
+    rng = np.asarray([1, 2], np.uint32)
+    assert ttrace.span("dedup") is ttrace._NULL_SPAN
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tops.update_rows(tables, spec, keys, rng, [3, 1])
+    names = {e.name for e in prof.events()}
+    assert {"cml.dedup", "cml.uniforms"} <= names
